@@ -1,0 +1,144 @@
+"""Synthetic specimens with the preprocessed-archive schema, for tests and
+for the card's smoke run (JAX counterpart: ``deepfluoro_tpu/data/
+fixtures.py``; ``make_specimen`` draws the same numbers from the same
+numpy generator).
+
+``make_synthetic_data`` builds the data in memory, as ``load_dataset``
+would read it back from ``write_synthetic_dataset``'s archive, so it runs
+where h5py is not installed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from deepfluoro_tpu_torch.data.hdf5 import FluoroData, mark_oob_landmarks_inf
+
+# 14 bilateral landmark names as in the real archives (README.md:45-54)
+DEFAULT_LAND_NAMES = [
+    "FH-l", "FH-r",
+    "GSN-l", "GSN-r",
+    "IOF-l", "IOF-r",
+    "MOF-l", "MOF-r",
+    "SPS-l", "SPS-r",
+    "IPS-l", "IPS-r",
+    "ASIS-l", "ASIS-r",
+]
+
+# landmark name -> seg class gating its detection (JAX package:
+# eval/landmarks.py; reference est_lands_csv.py:56-73)
+SEG_LABELS_TO_USE_FOR_LANDS = {
+    "FH-l": 5, "FH-r": 6,
+    "GSN-l": 1, "GSN-r": 2,
+    "IOF-l": 1, "IOF-r": 2,
+    "MOF-l": 1, "MOF-r": 2,
+    "SPS-l": 1, "SPS-r": 2,
+    "IPS-l": 1, "IPS-r": 2,
+    "ASIS-l": 1, "ASIS-r": 2,
+    "PSIS-l": 1, "PSIS-r": 2,
+    "PIIS-l": 1, "PIIS-r": 2,
+}
+
+
+def _ellipse_mask(h, w, cy, cx, ry, rx):
+    ys = np.arange(h)[:, None]
+    xs = np.arange(w)[None, :]
+    return (((ys - cy) / ry) ** 2 + ((xs - cx) / rx) ** 2) <= 1.0
+
+
+def make_specimen(rng: np.random.Generator, num_projs: int, img_dim: int, num_classes: int = 7, land_names=DEFAULT_LAND_NAMES):
+    """Returns (projs (N,R,C) f4, segs (N,R,C) u1, lands (N,2,L) f4):
+    elliptical 'bone' blobs per class at fixed sectors around the center,
+    landmarks at fixed angles on the blobs their names gate on, and about
+    5% of landmarks out of view."""
+    h = w = img_dim
+    n_l = len(land_names)
+    projs = np.zeros((num_projs, h, w), np.float32)
+    segs = np.zeros((num_projs, h, w), np.uint8)
+    lands = np.zeros((num_projs, 2, n_l), np.float32)
+
+    for n in range(num_projs):
+        bg = rng.random((h // 8 + 1, w // 8 + 1)).astype(np.float32)
+        bg = np.kron(bg, np.ones((8, 8), np.float32))[:h, :w]
+        img = 0.4 + 0.2 * bg
+
+        class_centers = {}
+        for c in range(1, num_classes):
+            ang = 2 * np.pi * (c - 1) / max(1, num_classes - 1)
+            cx = w / 2 + 0.26 * w * np.cos(ang) + rng.uniform(-0.04, 0.04) * w
+            cy = h / 2 + 0.26 * h * np.sin(ang) + rng.uniform(-0.04, 0.04) * h
+            ry = h * rng.uniform(0.10, 0.15)
+            rx = w * rng.uniform(0.10, 0.15)
+            m = _ellipse_mask(h, w, cy, cx, ry, rx)
+            segs[n][m] = c
+            img[m] += 0.22 + 0.07 * c
+            class_centers[c] = (cy, cx, ry, rx)
+
+        img += rng.normal(0, 0.01, (h, w)).astype(np.float32)
+        projs[n] = img
+
+        for li, name in enumerate(land_names):
+            c = SEG_LABELS_TO_USE_FOR_LANDS.get(name, 1)
+            if c in class_centers:
+                # a fixed angle on the mid-ellipse ring: the location is a
+                # function of the visible structure, so a net can learn it
+                cy, cx, ry, rx = class_centers[c]
+                ang = 2 * np.pi * li / max(1, n_l)
+                x = cx + 0.5 * rx * np.cos(ang)
+                y = cy + 0.5 * ry * np.sin(ang)
+            else:
+                x, y = rng.uniform(0, w - 1), rng.uniform(0, h - 1)
+            if rng.random() < 0.05:
+                x = -20.0
+            lands[n, 0, li] = x
+            lands[n, 1, li] = y
+
+    return projs, segs, lands
+
+
+def write_synthetic_dataset(
+    path: str,
+    num_specimens: int = 2,
+    num_projs: int = 6,
+    img_dim: int = 48,
+    num_classes: int = 7,
+    land_names=DEFAULT_LAND_NAMES,
+    seed: int = 0,
+) -> str:
+    """Write a preprocessed-schema HDF5 archive (specimens '01'..'0N')."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    with h5py.File(path, "w") as f:
+        g = f.create_group("land-names")
+        g["num-lands"] = len(land_names)
+        for li, name in enumerate(land_names):
+            g["land-{:02d}".format(li)] = name
+        for s in range(1, num_specimens + 1):
+            projs, segs, lands = make_specimen(rng, num_projs, img_dim, num_classes, land_names)
+            sg = f.create_group("{:02d}".format(s))
+            sg.create_dataset("projs", data=projs)
+            sg.create_dataset("segs", data=segs)
+            sg.create_dataset("lands", data=lands)
+    return path
+
+
+def make_synthetic_data(
+    num_specimens: int = 2,
+    num_projs: int = 6,
+    img_dim: int = 48,
+    num_classes: int = 7,
+    land_names=DEFAULT_LAND_NAMES,
+    seed: int = 0,
+) -> FluoroData:
+    """The rows ``load_dataset(write_synthetic_dataset(...), 1..N)`` would
+    give for the same arguments, built in memory."""
+    rng = np.random.default_rng(seed)
+    parts = [make_specimen(rng, num_projs, img_dim, num_classes, land_names) for _ in range(num_specimens)]
+    return FluoroData(
+        projs=np.concatenate([p for p, _, _ in parts]),
+        segs=np.concatenate([s for _, s, _ in parts]),
+        lands=mark_oob_landmarks_inf(np.concatenate([l for _, _, l in parts]), (img_dim, img_dim)),
+        orig_img_shape=(img_dim, img_dim),
+        pat_inds=np.repeat(np.arange(1, num_specimens + 1), num_projs),
+    )

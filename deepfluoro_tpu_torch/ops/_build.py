@@ -1,0 +1,65 @@
+"""Build the package's CUDA sources with ``nvcc`` into plain shared
+libraries and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
+header, so one build takes seconds. The library goes to
+``build/deepfluoro_tpu_torch/`` at the repository root (listed in
+``.gitignore``) under a name keyed by a hash of the source and the flags:
+it is built at first use after each source change and reused after that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepfluoro_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's output (with -Xptxas -v: registers, shared memory and spills per
+# kernel) of each build this process ran, by source name
+build_logs: dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found on PATH or under {}/bin".format(cuda_home))
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = _CSRC / "{}.cu".format(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / "{}_{}.so".format(name, digest)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
+    Raises RuntimeError when nvcc fails."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    so = library_path(name)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name("{}.{}.tmp".format(so.name, os.getpid()))
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "{}.cu".format(name))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for {}:\n{}".format(name, build_logs[name]))
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
+    lib = ctypes.CDLL(str(so))
+    _loaded[name] = lib
+    return lib

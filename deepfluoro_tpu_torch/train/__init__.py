@@ -1,0 +1,10 @@
+from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
+from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartLR
+from deepfluoro_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, train_step
+from deepfluoro_tpu_torch.train.loop import fit
+
+__all__ = [
+    "TrainConfig", "build_model", "ReduceLROnPlateau", "WarmRestartLR", "load_checkpoint",
+    "save_checkpoint", "eval_losses", "make_optimizer", "train_step", "fit",
+]
