@@ -11,19 +11,29 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      the TF32 switches, set explicitly (both off: the recipe is float32);
   2. build: ``nvcc`` compiles ``deepfluoro_tpu_torch/csrc/affine_warp.cu``
      into ``build/deepfluoro_tpu_torch/``;
-  3. kernel against its plain version on the card: the 8x training warps,
-     a matrix far outside the augmentation box, and two wide geometries;
-     bilinear within max |diff| <= 1e-4, nearest with < 0.1 % of pixels
-     different; then the times of one training step's two warps;
+  3. kernel against its plain version on the card, bilinear within max
+     |diff| <= 1e-4, nearest with < 0.1 % of pixels different: one
+     training step's pair (projection and labels, one launch) under the
+     augmentation's matrices at 8x (180 -> 192 and 179 -> 193), 2x
+     (718 -> 736) and 1x (1436 -> 1440); two matrices outside the
+     augmentation's box whose tiles take the global path; single warps at
+     two more geometries. At each of the four geometries the pair's device
+     time (a CUDA graph of 50 launches), host dispatch per call, profiler
+     time, bound, plain time and ``grid_sample_warp`` time;
   4. training: ``fit`` on the full-width 8x paper recipe (depth 6, wf 5,
      192^2 input from 180^2 frames, batch 5, Nesterov SGD, plateau LR,
      data augmentation) for 2 epochs of an in-memory synthetic dataset made
-     from ``--seed``, with checkpoints in a temporary directory; then the
-     trained net's forward on the card against the same net on the CPU.
+     from ``--seed``, with checkpoints in a temporary directory; one warp
+     launch per step; then the trained net's forward on the card against
+     the same net on the CPU, and the BatchNorm running variances after one
+     train-mode forward on each;
+  5. profiler: ``torch.profiler``'s device time of the pair at each
+     geometry, the cross-check of phase 3's graph timing (last, because a
+     CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
 line. On success the line before the last is a JSON object describing the
-kernel, and the last line is
+kernel (with its times at every geometry), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -50,26 +60,23 @@ FP32_FLOPS_PER_S = 67e12
 WARP_SOURCE = "deepfluoro_tpu_torch/csrc/affine_warp.cu"
 WARP_REPLACES = "deepfluoro_tpu/ops/pallas/warp.py:59"
 
+# (rung, batch, frame, padded frame): one training step's warps take the
+# projection from frame^2 into (frame + 2 calc_pad_amount(padded, frame))^2
+# and the labels within frame^2; the 8x smoke data, the archive's real 8x
+# frame (179 -> 193: the odd delta rounds up, reference dataset.py:287-290)
+# and the ladder's 2x and 1x rungs (scripts/e2e_ladder.sh:26-30)
+GEOMETRIES = [
+    ("8x", 5, 180, 192),
+    ("8x", 5, 179, 192),
+    ("2x", 5, 718, 736),
+    ("1x", 2, 1436, 1440),
+]
+GRAPH_SETS = 50  # launch sets in the CUDA graph that times the device
+HOST_CALLS = 200  # calls timed on the host clock for the dispatch time
+
 
 def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
-
-
-def _median_ms(fn, repeats, warmup=5):
-    """Median of CUDA-event timings of ``fn`` after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def phase_environment():
@@ -93,7 +100,7 @@ def phase_build():
     load_library("affine_warp")
     print("built {} in {:.2f} s".format(library_path("affine_warp"), time.perf_counter() - t0))
     for line in build_logs.get("affine_warp", "").splitlines():
-        if "ptxas info" in line:
+        if "ptxas info" in line or "spill" in line:
             print("  " + line.strip())
 
 
@@ -109,83 +116,232 @@ def _aug_matrices(gen, b, dim):
     )
 
 
+def _graph_ms(fn, sets=GRAPH_SETS, replays=5):
+    """Device time of one call of ``fn``: CUDA events around the replay of
+    a CUDA graph that holds ``sets`` calls, divided by ``sets``; the median
+    of ``replays`` replays, back to back (inputs as the previous call left
+    them in L2)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(sets):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / sets)
+    del graph
+    return float(np.median(times))
+
+
+def _host_ms(fn, calls=HOST_CALLS):
+    """Host dispatch of one call: the host clock over ``calls`` calls, which
+    only enqueue work, then a synchronise outside the clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / calls
+
+
+def _profiled_ms(fn, kernel_name, calls=20):
+    """torch.profiler's device time of ``kernel_name`` per call of ``fn``;
+    None where the profiler reports no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if kernel_name in e.key)
+    return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def _warp_bound(b, dim, out_dim):
+    """Least time of one step's pair: the projection and the labels read
+    once, both outputs written once, the matrices read once; or the float
+    operations (bilinear: coordinates 10, weights 4, four taps 3 each;
+    nearest: coordinates 10, rounding 2) at the float32 peak."""
+    nbytes = 4 * (b * dim * dim + b * out_dim * out_dim + 2 * b * dim * dim + 6 * b)
+    nops = 26 * b * out_dim * out_dim + 12 * b * dim * dim
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, nops
+
+
+def _compare(name, got, want, order):
+    """Max |diff| (bilinear) or the share of differing pixels (nearest);
+    raises when over its limit."""
+    err = float((got - want).abs().max())
+    if order == 1:
+        ok = err <= 1e-4
+        print("  {}: max |diff| {:.3e} (<= 1e-4) {}".format(name, err, "ok" if ok else "FAIL"))
+    else:
+        share = float((got != want).float().mean())
+        ok = share < 1e-3
+        print("  {}: {:.4%} of pixels differ (< 0.1 %) {}".format(name, share, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("kernel disagrees with its plain version: " + name)
+    return err if order == 1 else 0.0
+
+
+def _routes(m, out_hw, off):
+    from deepfluoro_tpu_torch.ops.warp import tile_windows
+
+    shared = tile_windows(m.cpu(), out_hw, off)["shared"]
+    return int(shared.sum()), int((~shared).sum())
+
+
 def phase_kernel_check(seed):
     from deepfluoro_tpu_torch.ops import image, warp
-    from deepfluoro_tpu_torch.ops.image import inverse_affine_matrix
+    from deepfluoro_tpu_torch.ops.image import calc_pad_amount, inverse_affine_matrix
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    b, dim, out_dim = 5, 180, 192
-    extra = (out_dim - dim) // 2
 
     def fixed(dim_, angle, trans, scale, shear, n):
         m = inverse_affine_matrix((dim_ / 2.0, dim_ / 2.0), angle, trans, scale, shear)
         return m.expand(n, 2, 3).contiguous().to(dev)
 
+    max_abs = 0.0
+    geometries, pairs = [], []
+    for name, b, dim, pad_dim in GEOMETRIES:
+        extra = calc_pad_amount(pad_dim, dim)
+        out_dim = dim + 2 * extra
+        oshape, off = (out_dim, out_dim), (-extra, -extra)
+        proj = torch.rand((b, dim, dim), generator=gen, device=dev)
+        labels = torch.randint(0, 7, (b, dim, dim), generator=gen, device=dev).float()
+        aug_m = _aug_matrices(gen, b, dim).to(dev)
+        label = "{} {}->{} (batch {})".format(name, dim, out_dim, b)
+        print("  {}: tiles staged in shared memory / sampled from global: projection {} / {}, labels {} / {}".format(
+            label, *_routes(aug_m, oshape, off), *_routes(aug_m, (dim, dim), (0.0, 0.0))))
+
+        # each function binds this geometry's tensors: phase 5 calls kernel_pair again
+        def kernel_pair(proj=proj, labels=labels, aug_m=aug_m, oshape=oshape, off=off):
+            return warp.affine_warp_pair(proj, labels, aug_m, oshape, off)
+
+        def plain_pair(proj=proj, labels=labels, aug_m=aug_m, oshape=oshape, off=off):
+            return (image.affine_warp(proj, aug_m, 1, oshape, off), image.affine_warp(labels, aug_m, 0))
+
+        def library_pair(proj=proj, labels=labels, aug_m=aug_m, oshape=oshape, off=off):
+            return (warp.grid_sample_warp(proj, aug_m, 1, oshape, off), warp.grid_sample_warp(labels, aug_m, 0))
+
+        got, want = kernel_pair(), plain_pair()
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, _compare(label + " projection bilinear", got[0], want[0], 1))
+        _compare(label + " labels nearest", got[1], want[1], 0)
+        lib = library_pair()
+        print("  {}: grid_sample_warp against the plain version: projection max |diff| {:.3e}, "
+              "labels {:.4%} of pixels differ".format(label, float((lib[0] - want[0]).abs().max()),
+                                                       float((lib[1] != want[1]).float().mean())))
+
+        bound_ms, bound_by, nbytes, nops = _warp_bound(b, dim, out_dim)
+        row = {
+            "geometry": label,
+            "device_ms": _graph_ms(kernel_pair),
+            "host_ms": _host_ms(kernel_pair),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "plain_ms": _graph_ms(plain_pair),
+            "library_ms": _graph_ms(library_pair),
+        }
+        print("  {}: one step's warps: kernel device {:.5f} ms (graph of {}), host dispatch {:.5f} ms per call, "
+              "bound {:.5f} ms by {} ({} bytes, {} operations), plain {:.5f} ms, grid_sample_warp {:.5f} ms".format(
+                  label, row["device_ms"], GRAPH_SETS, row["host_ms"], bound_ms, bound_by, nbytes, nops,
+                  row["plain_ms"], row["library_ms"]))
+        geometries.append(row)
+        pairs.append(kernel_pair)
+
+    # matrices outside the augmentation's box: the far one that needed the
+    # TPU kernel's fallback, and a zoom-out whose windows exceed the budget
+    b, dim, out_dim = 5, 180, 192
+    extra = (out_dim - dim) // 2
     proj = torch.rand((b, dim, dim), generator=gen, device=dev)
     labels = torch.randint(0, 7, (b, dim, dim), generator=gen, device=dev).float()
-    aug_m = _aug_matrices(gen, b, dim).to(dev)
-    far_m = fixed(dim, 30.0, (60.0, -60.0), 0.6, (0.0, 0.0), b)
-    cases = [
-        ("8x projection 180->192 bilinear", proj, aug_m, 1, (out_dim, out_dim), (-extra, -extra)),
-        ("8x labels 180->180 nearest", labels, aug_m, 0, None, (0.0, 0.0)),
-        ("far matrix 180->192 bilinear", proj, far_m, 1, (out_dim, out_dim), (-extra, -extra)),
-        ("far matrix 180->180 nearest", labels, far_m, 0, None, (0.0, 0.0)),
-    ]
+    for name, m in (("far matrix", fixed(dim, 30.0, (60.0, -60.0), 0.6, (0.0, 0.0), b)),
+                    ("scale 0.1", fixed(dim, 3.0, (5.0, -5.0), 0.1, (0.5, 0.5), b))):
+        oshape, off = (out_dim, out_dim), (-extra, -extra)
+        n_shared, n_global = _routes(m, oshape, off)
+        print("  {} {}->{}: tiles staged in shared memory / sampled from global: {} / {}".format(
+            name, dim, out_dim, n_shared, n_global))
+        if n_global == 0:
+            raise AssertionError(name + " takes no tile through the global path")
+        got = warp.affine_warp_pair(proj, labels, m, oshape, off)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, _compare(name + " projection bilinear", got[0], image.affine_warp(proj, m, 1, oshape, off), 1))
+        _compare(name + " labels nearest", got[1], image.affine_warp(labels, m, 0), 0)
+        got = warp.affine_warp(labels, m, 0, oshape, off)
+        _compare("{} single warp nearest {}->{}".format(name, dim, out_dim), got, image.affine_warp(labels, m, 0, oshape, off), 0)
     for orig, od in ((360, 360), (300, 320)):
-        e = (od - orig) // 2 if od > orig else 0
+        e = (od - orig) // 2
         img = torch.rand((2, orig, orig), generator=gen, device=dev)
         m = fixed(orig, -5.0, (-20.0, 20.0), 0.9, (-1.0, 1.0), 2)
-        cases.append(("{}->{} bilinear".format(orig, od), img, m, 1, (od, od), (-e, -e)))
+        got = warp.affine_warp(img, m, 1, (od, od), (-e, -e))
+        max_abs = max(max_abs, _compare("single warp {}->{} bilinear".format(orig, od), got,
+                                        image.affine_warp(img, m, 1, (od, od), (-e, -e)), 1))
 
-    max_abs = 0.0
-    for name, img, m, order, oshape, off in cases:
-        got = warp.affine_warp(img, m, order=order, out_shape=oshape, out_offset_xy=off)
-        want = image.affine_warp(img, m, order=order, out_shape=oshape, out_offset_xy=off)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_abs = max(max_abs, err)
-        if order == 1:
-            ok = err <= 1e-4
-            print("  {}: max |diff| {:.3e} (<= 1e-4) {}".format(name, err, "ok" if ok else "FAIL"))
-        else:
-            share = float((got != want).float().mean())
-            ok = share < 1e-3
-            print("  {}: {:.4%} of pixels differ (< 0.1 %) {}".format(name, share, "ok" if ok else "FAIL"))
-        if not ok:
-            raise AssertionError("kernel disagrees with its plain version: " + name)
-
-    # one training step's two warps, as the augmentation issues them
-    def step_warps(fn):
-        def run():
-            fn(proj, aug_m, order=1, out_shape=(out_dim, out_dim), out_offset_xy=(-extra, -extra))
-            fn(labels, aug_m, order=0)
-        return run
-
-    ms = _median_ms(step_warps(warp.affine_warp), repeats=200)
-    plain_ms = _median_ms(step_warps(image.affine_warp), repeats=50)
-    nbytes = 4 * (2 * b * dim * dim + b * out_dim * out_dim + b * dim * dim + 2 * b * 6)
-    # per output pixel: coordinates 10, weights 4, four taps 3 each (bilinear);
-    # coordinates 10 and rounding 2 (nearest)
-    nops = 26 * b * out_dim * out_dim + 12 * b * dim * dim
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / FP32_FLOPS_PER_S * 1e3
-    print("  one step's warps: kernel {:.4f} ms, plain {:.4f} ms, bound {:.6f} ms ({} bytes, {} operations); "
-          "no single PyTorch call computes a mirror warp, so there is no library time".format(
-              ms, plain_ms, max(bytes_ms, ops_ms), nbytes, nops))
-    return {
+    main = geometries[0]  # the smoke training's geometry
+    return pairs, {
         "name": "affine_warp",
         "route": "cuda",
         "source": WARP_SOURCE,
         "replaces": WARP_REPLACES,
         "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "ms": main["device_ms"],
+        "host_ms": main["host_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "geometries": geometries,
     }
+
+
+def phase_profiler(pairs, kernel):
+    """torch.profiler's device time of the pair at each geometry, beside
+    the graph-timed device time of phase 3, and the kernels one train-mode
+    forward of the 8x U-Net launches, of which the BatchNorm correction's
+    are the multi-tensor ones. It runs last: after a CUDA trace the process
+    launches kernels more slowly, which would bias phase 4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfluoro_tpu_torch.models import UNet
+
+    for fn, row in zip(pairs, kernel["geometries"]):
+        row["profiler_ms"] = _profiled_ms(fn, "affine_warp")
+        print("  {}: profiler {} per pair, graph {:.5f} ms".format(
+            row["geometry"], "reports no device time" if row["profiler_ms"] is None else "{:.5f} ms".format(row["profiler_ms"]),
+            row["device_ms"]))
+
+    model = UNet(n_classes=7, depth=6, wf=5, padding=True, batch_norm=True, max_pool=False, num_lands=14).cuda().train()
+    x = torch.randn((5, 1, 192, 192), device="cuda")
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    foreach = [k for k in kernels if "multi_tensor_apply" in k]
+    print("  one train-mode forward of the 8x U-Net: {} kernels on the card, {} of them multi-tensor "
+          "(the BatchNorm running-variance correction)".format(len(kernels), len(foreach)))
 
 
 def phase_training(seed, workdir):
@@ -203,6 +359,7 @@ def phase_training(seed, workdir):
     )
     ck_path = os.path.join(workdir, "check_net.pt")
     torch.cuda.reset_peak_memory_stats()
+    before_fit = torch.cuda.memory_allocated()
     warp.warp_launches = 0
     t0 = time.perf_counter()
     out = fit(
@@ -227,9 +384,9 @@ def phase_training(seed, workdir):
         raise AssertionError("non-finite loss")
     if not all(p.device.type == "cuda" for p in model.parameters()):
         raise AssertionError("a parameter is off the card")
-    if launches != 2 * n_steps:
-        raise AssertionError("warp launches {} != 2 x {} steps".format(launches, n_steps))
-    print("  warp kernel launches during fit: {} (2 per step)".format(launches))
+    if launches != n_steps:
+        raise AssertionError("warp launches {} != 1 x {} steps".format(launches, n_steps))
+    print("  warp kernel launches during fit: {} (1 per step)".format(launches))
 
     ck = load_checkpoint(ck_path)
     for key in ("model-state-dict", "optimizer-state-dict", "scheduler-state-dict", "epoch", "loss",
@@ -249,7 +406,8 @@ def phase_training(seed, workdir):
     print("  train steps/s over the batch loops after the first step: {:.3f} "
           "(first step {:.3f} s, then median {:.4f} s/step)".format(
         len(sec) / sum(sec), out["step_seconds"][0], float(np.median(sec))))
-    print("  peak device memory (max_memory_allocated): {} bytes".format(torch.cuda.max_memory_allocated()))
+    print("  peak device memory (max_memory_allocated): {} bytes, {} of them allocated before fit "
+          "(phase 3's inputs, kept for phase 5)".format(torch.cuda.max_memory_allocated(), before_fit))
 
     # the trained net on the card against the same net on the CPU, one frame
     valid = data.select_pats([2, 3, 4, 5, 6]).subset(out["valid_idx"][:1])
@@ -269,6 +427,22 @@ def phase_training(seed, workdir):
         raise AssertionError("non-finite forward output")
     if seg_err > 1e-3 or heat_err > 1e-3 * max(1.0, heat_scale):
         raise AssertionError("card and CPU forwards disagree")
+
+    # BatchNorm running statistics (flax's update): one train-mode forward
+    # of the trained weights on one batch, on the card and on the CPU
+    train = data.select_pats([2, 3, 4, 5, 6]).subset(out["train_idx"][: cfg.batch_size])
+    x = prepare_batch(AugmentConfig(proj_pad_dim=192, prob_of_aug=0.0), None, torch.from_numpy(train.projs))["proj"]
+    card_model = copy.deepcopy(model).train()
+    cpu_model = copy.deepcopy(model).cpu().train()
+    with torch.no_grad():
+        card_model(x.cuda())
+        cpu_model(x)
+    card_sd, cpu_sd = card_model.state_dict(), cpu_model.state_dict()
+    keys = [k for k in cpu_sd if k.endswith("running_var")]
+    rel = max(float(((card_sd[k].cpu() - cpu_sd[k]).abs() / cpu_sd[k].abs().clamp_min(1e-30)).max()) for k in keys)
+    print("  train-mode forward, card vs CPU: {} running variances agree to {:.2e} relative (<= 1e-4)".format(len(keys), rel))
+    if not keys or rel > 1e-4:
+        raise AssertionError("BatchNorm running variances differ between card and CPU")
     return launches
 
 
@@ -288,6 +462,7 @@ def main(argv=None) -> int:
             ("2 build", phase_build),
             ("3 kernel vs plain", lambda: phase_kernel_check(args.seed)),
             ("4 training", lambda: phase_training(args.seed, workdir)),
+            ("5 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -298,7 +473,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    kernel = dict(results["3 kernel vs plain"])
+    kernel = dict(results["3 kernel vs plain"][1])
     kernel["launches"] = results["4 training"]
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))

@@ -31,10 +31,10 @@ Stage semantics (reference dataset.py):
 The divergences the JAX package documents (corrected landmark bounds
 check, exact warp center for landmarks, clipped erase dims) hold here too.
 
-The warp goes through ``ops/warp.py::affine_warp``: the CUDA kernel for
-CUDA tensors, the plain version for CPU tensors. With ``prob_of_aug > 0``
-every sample is warped and the gate selects afterwards, so a batch costs
-two kernel launches (projection and labels).
+The warp goes through ``ops/warp.py::affine_warp_pair``: the CUDA kernel
+for CUDA tensors, the plain version for CPU tensors. With ``prob_of_aug >
+0`` every sample is warped and the gate selects afterwards, so a batch
+costs one kernel launch, which warps the projection and the labels.
 """
 
 from __future__ import annotations
@@ -149,11 +149,10 @@ def apply_augmentation(draws: dict, p: torch.Tensor, s: torch.Tensor | None, lan
     # warping about the original center straight into the padded frame with
     # mirror boundaries equals the reference's reflect-pad -> warp ->
     # center-crop chain (dataset.py:158-203)
-    p_warp = warp.affine_warp(
-        p01.contiguous(), m, order=1, out_shape=(h + 2 * extra, w + 2 * extra), out_offset_xy=(-extra, -extra)
+    p_warp, s = warp.affine_warp_pair(
+        p01.contiguous(), None if s is None else s.float().contiguous(), m,
+        out_shape=(h + 2 * extra, w + 2 * extra), out_offset_xy=(-extra, -extra),
     )
-    if s is not None:
-        s = warp.affine_warp(s.float().contiguous(), m, order=0)
     p = p_warp * (hi - lo) + lo
     if lands is not None:
         # the exact center of the image warp in index space

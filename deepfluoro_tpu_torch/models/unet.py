@@ -21,9 +21,10 @@ checkpoints:
 Registration order is the reference's (downsample_convs before down_path,
 res_conv1x1 before block), which fixes the state_dict and parameters()
 order. BatchNorm follows the ReLU (unet.py:213-215) with eps 1e-5 and
-torch momentum 0.1 (flax momentum 0.9). Its running variance is updated
-with the unbiased batch variance, as torch (and the reference) do; flax
-uses the biased one.
+torch momentum 0.1 (flax momentum 0.9). Its running statistics follow
+flax: a train-mode forward of ``UNet`` moves the running variance toward
+the biased batch variance (divisor n), where torch (and the reference)
+take the unbiased one; see ``UNet.forward``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepfluoro_tpu_torch.ops.image import center_crop
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d (same buffers and state_dict keys) that records
+    the values per channel of its last train-mode input, ``n_last``, for
+    the running-variance correction in ``UNet.forward``."""
+
+    n_last = 0
+
+    def forward(self, x):
+        if self.training:
+            self.n_last = x.numel() // x.shape[1]
+        return super().forward(x)
 
 
 def _conv3x3(in_size: int, out_size: int, padding: bool, pad_mode: str) -> nn.Conv2d:
@@ -53,7 +67,7 @@ class UNetConvBlock(nn.Module):
             layers.append(_conv3x3(in_size if d == 0 else out_size, out_size, padding, pad_mode))
             layers.append(nn.ReLU())
             if batch_norm:
-                layers.append(nn.BatchNorm2d(out_size, eps=1e-5, momentum=0.1))
+                layers.append(BatchNorm2d(out_size, eps=1e-5, momentum=0.1))
         self.block = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -149,8 +163,25 @@ class UNet(nn.Module):
             for _ in range(lands_num_1x1 - 1):
                 self.lands_1x1.append(nn.Conv2d(n_out, num_lands, kernel_size=1, bias=False))
                 n_out = num_lands
+        self._bns = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
 
     def forward(self, x):
+        """In train mode, torch's BatchNorm moves each running variance to
+        ``(1-m) old + m n/(n-1) var``; flax, whose running statistics the
+        port keeps, to ``(1-m) old + m var`` (var biased, m = 0.1). The
+        correction is one lerp of every layer toward ``(1-m) old`` with
+        weight ``1/n``, as two multi-tensor launches per forward. It writes
+        through ``.data``: autograd saved the buffers for backward, which in
+        train mode does not read them. Outputs and gradients are torch's."""
+        bns = self._bns if self.training else []
+        if bns:
+            old = torch._foreach_mul([m.running_var for m in bns], 1.0 - bns[0].momentum)
+        out = self._forward(x)
+        if bns:
+            torch._foreach_lerp_([m.running_var.data for m in bns], old, [1.0 / m.n_last for m in bns])
+        return out
+
+    def _forward(self, x):
         blocks = []
         depth = len(self.down_path)
         for i, down in enumerate(self.down_path):

@@ -134,8 +134,11 @@ def affine_warp(
     half-pixel convention, reference dataset.py:193-198). The output grid
     may extend past the input (``out_shape``, ``out_offset_xy``). Boundaries
     mirror without repeating the edge pixel (``mode='mirror'`` of JAX's
-    ``map_coordinates``, which equals an np.pad 'reflect' pre-pad; NOT
-    ``grid_sample(padding_mode='reflection')``, which repeats the edge).
+    ``map_coordinates``, which equals an np.pad 'reflect' pre-pad, and
+    ``grid_sample(padding_mode='reflection', align_corners=True)``, which
+    reflects about the centres of pixels 0 and n - 1; with
+    ``align_corners=False`` it reflects about the outer edges and repeats
+    the edge pixel; ``ops/warp.py::grid_sample_warp``).
     Order 0 takes ``floor(in + 0.5)`` like PIL and the Pallas kernel.
     """
     squeeze = img.ndim == 2

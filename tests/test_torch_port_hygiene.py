@@ -52,3 +52,14 @@ def test_kernel_is_built_with_nvcc_not_torch_extensions():
     assert "nvcc" in build and "sm_90a" in build
     for path in FILES:
         assert "cpp_extension" not in path.read_text(), path
+
+
+def test_main_path_never_calls_the_yardstick():
+    """grid_sample_warp is timed beside the kernel by chip_smoke.py; the
+    augmentation and the training loop never reach it."""
+    files = sorted((ROOT / "deepfluoro_tpu_torch" / "data").rglob("*.py"))
+    files += sorted((ROOT / "deepfluoro_tpu_torch" / "train").rglob("*.py"))
+    assert len(files) > 5
+    for path in files:
+        text = path.read_text()
+        assert "grid_sample_warp" not in text and "grid_sample(" not in text, path

@@ -106,41 +106,57 @@ def test_eval_forward_matches_flax(flags, size):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL)
 
 
-def test_batchnorm_train_forward_and_running_stats():
-    """One train-mode forward: outputs and running means agree with flax;
-    running variances keep torch's (the reference's) unbiased update, so
-    (var_torch - 0.9 var_old) = n/(n-1) (var_flax - 0.9 var_old) with n the
-    values per channel of that layer's batch."""
-    flags, size = CASES[1]
+def _train_forwards(flags, size, n_forwards):
+    """``n_forwards`` train-mode forwards of the flax net and the port from
+    the same weights, each on its own input from a seed: the last outputs of
+    both and their running statistics as port state_dicts."""
     jmodel, params, stats = _jax_variables(flags, size)
-    x = np.random.default_rng(2).standard_normal((2, size, size, 1)).astype(np.float32)
-    jout, mutated = jmodel.apply(
-        {"params": params, "batch_stats": stats}, jnp.asarray(x), train=True, mutable=["batch_stats"]
-    )
     model = _port(flags, params, stats).train()
-    old = {k: v.clone() for k, v in model.state_dict().items()}
-    n_per_bn = {}
-    hooks = [
-        m.register_forward_hook(lambda mod, inp, out, name=name: n_per_bn.__setitem__(name, inp[0].numel() // inp[0].shape[1]))
-        for name, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)
-    ]
-    got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
-    for h in hooks:
-        h.remove()
-    for g, w in zip(got, _nchw(jout)):
-        np.testing.assert_allclose(g.detach().numpy(), w, atol=ATOL)
-
-    new_jax = state_dict_from_jax(params, jax.tree.map(np.asarray, mutated["batch_stats"]), model)
-    sd = model.state_dict()
-    assert len(n_per_bn) == 2 * (2 * flags["depth"] - 1)
-    for name, n in n_per_bn.items():
-        np.testing.assert_allclose(sd[name + ".running_mean"].numpy(), new_jax[name + ".running_mean"].numpy(), atol=1e-5)
-        old_var = 0.9 * old[name + ".running_var"].numpy()
-        np.testing.assert_allclose(
-            sd[name + ".running_var"].numpy() - old_var,
-            (new_jax[name + ".running_var"].numpy() - old_var) * n / (n - 1), rtol=1e-4, atol=1e-6,
+    rng = np.random.default_rng(2)
+    for _ in range(n_forwards):
+        x = rng.standard_normal((2, size, size, 1)).astype(np.float32)
+        jout, mutated = jmodel.apply(
+            {"params": params, "batch_stats": stats}, jnp.asarray(x), train=True, mutable=["batch_stats"]
         )
-        assert int(sd[name + ".num_batches_tracked"]) == 1
+        stats = jax.tree.map(np.asarray, mutated["batch_stats"])
+        got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    return got, _nchw(jout), model, state_dict_from_jax(params, stats, model)
+
+
+def _assert_running_stats_match(model, want, n_forwards):
+    names = [name for name, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    sd = model.state_dict()
+    for name in names:
+        for stat in ("running_mean", "running_var"):
+            key = "{}.{}".format(name, stat)
+            np.testing.assert_allclose(sd[key].numpy(), want[key].numpy(), atol=1e-5, err_msg=key)
+        assert int(sd[name + ".num_batches_tracked"]) == n_forwards
+    return names
+
+
+def test_batchnorm_train_forward_and_running_stats():
+    """One train-mode forward: outputs, running means and running variances
+    agree with flax, whose running variance takes the biased batch variance
+    (the port corrects torch's unbiased update in UNet.forward)."""
+    flags, size = CASES[1]
+    got, want, model, new_jax = _train_forwards(flags, size, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), w, atol=ATOL)
+    names = _assert_running_stats_match(model, new_jax, 1)
+    assert len(names) == 2 * (2 * flags["depth"] - 1)
+
+
+@pytest.mark.parametrize("flags,size", [CASES[1], CASES[9]])
+def test_batchnorm_running_stats_follow_flax_over_three_forwards(flags, size):
+    """Three train-mode forwards in a row on different inputs (layers with
+    different values per channel, n): the running statistics stay flax's,
+    and a backward after them still runs (the correction writes buffers
+    that autograd saved)."""
+    got, _, model, new_jax = _train_forwards(flags, size, 3)
+    _assert_running_stats_match(model, new_jax, 3)
+    got[0].sum().backward()
+    grad = model.down_path[0].block[0].weight.grad
+    assert grad is not None and torch.isfinite(grad).all()
 
 
 def test_dead_downsample_conv_is_zero_filled_and_unused():
