@@ -24,10 +24,22 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      192^2 input from 180^2 frames, batch 5, Nesterov SGD, plateau LR,
      data augmentation) for 2 epochs of an in-memory synthetic dataset made
      from ``--seed``, with checkpoints in a temporary directory; one warp
-     launch per step; then the trained net's forward on the card against
-     the same net on the CPU, and the BatchNorm running variances after one
-     train-mode forward on each;
-  5. profiler: ``torch.profiler``'s device time of the pair at each
+     launch per step; ``fit``'s peak memory less what was allocated before
+     it; then the trained net's forward on the card against the same net
+     on the CPU, and the BatchNorm running variances after one train-mode
+     forward on each;
+  5. inference: a K = 6 ensemble of the 8x model (phase 4's checkpoint and
+     five members drawn from seeded generators, each saved and reloaded
+     through ``load_net_from_checkpoint``) over synthetic 180^2 frames and
+     a batch of 179^2 frames (padded to 193^2), driven through
+     ``ensemble_batches``, the device half of ``cli/test_ensemble.py``;
+     the card against the CPU on the same members and frames (member-mean
+     seg and heats within 1e-3, labels differing on < 0.1 % of pixels and
+     only at near-ties, ``detect_landmarks`` and ``hard_dice`` equal); the
+     per-image latency at batch 1, frames/s at batch 64 for K = 6 and
+     K = 1, the phase's peak memory less its baseline and the landmark
+     detection time per frame;
+  6. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
@@ -74,6 +86,19 @@ GEOMETRIES = [
 GRAPH_SETS = 50  # launch sets in the CUDA graph that times the device
 HOST_CALLS = 200  # calls timed on the host clock for the dispatch time
 
+# the inference phase: K members of the 8x model over synthetic frames of
+# the smoke data's size (180 -> 192) and the real 8x archive's (179 -> 193)
+ENSEMBLE_K = 6
+INFER_FRAME = 180
+INFER_FRAME_ODD = 179
+CHECK_FRAMES = 6  # 180^2 frames held card against CPU (batches of 4 and 2)
+CHECK_FRAMES_ODD = 3
+LATENCY_FRAMES = 32  # timed at batch 1, the reference's granularity
+THROUGHPUT_BATCH = 64
+THROUGHPUT_FRAMES = 256
+BN_CALIBRATION_FORWARDS = 20  # train-mode forwards that set a seeded member's BatchNorm statistics
+DEVICE = "cuda"
+
 
 def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
@@ -91,6 +116,7 @@ def phase_environment():
     print("torch.backends.cuda.matmul.allow_tf32 = {}".format(torch.backends.cuda.matmul.allow_tf32))
     print("torch.backends.cudnn.allow_tf32 = {}".format(torch.backends.cudnn.allow_tf32))
     print("device: {} x {}".format(torch.cuda.device_count(), torch.cuda.get_device_name(0)))
+    return smi
 
 
 def phase_build():
@@ -233,7 +259,7 @@ def phase_kernel_check(seed):
         print("  {}: tiles staged in shared memory / sampled from global: projection {} / {}, labels {} / {}".format(
             label, *_routes(aug_m, oshape, off), *_routes(aug_m, (dim, dim), (0.0, 0.0))))
 
-        # each function binds this geometry's tensors: phase 5 calls kernel_pair again
+        # each function binds this geometry's tensors: phase 6 calls kernel_pair again
         def kernel_pair(proj=proj, labels=labels, aug_m=aug_m, oshape=oshape, off=off):
             return warp.affine_warp_pair(proj, labels, aug_m, oshape, off)
 
@@ -344,7 +370,7 @@ def phase_profiler(pairs, kernel):
           "(the BatchNorm running-variance correction)".format(len(kernels), len(foreach)))
 
 
-def phase_training(seed, workdir):
+def phase_training(seed, workdir, card):
     from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
     from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
     from deepfluoro_tpu_torch.ops import warp
@@ -403,11 +429,13 @@ def phase_training(seed, workdir):
     print("  checkpoint {} holds epoch {} and {} tensors".format(os.path.basename(ck_path), ck["epoch"], len(sd)))
 
     sec = out["step_seconds"][1:]
-    print("  train steps/s over the batch loops after the first step: {:.3f} "
+    print("  [{}] train steps/s over the batch loops after the first step: {:.3f} "
           "(first step {:.3f} s, then median {:.4f} s/step)".format(
-        len(sec) / sum(sec), out["step_seconds"][0], float(np.median(sec))))
-    print("  peak device memory (max_memory_allocated): {} bytes, {} of them allocated before fit "
-          "(phase 3's inputs, kept for phase 5)".format(torch.cuda.max_memory_allocated(), before_fit))
+        card, len(sec) / sum(sec), out["step_seconds"][0], float(np.median(sec))))
+    peak = torch.cuda.max_memory_allocated()
+    print("  [{}] fit's peak device memory less its baseline: {} bytes (max_memory_allocated {} bytes, "
+          "of which {} were allocated before fit: phase 3's inputs, kept for phase 6)".format(
+        card, peak - before_fit, peak, before_fit))
 
     # the trained net on the card against the same net on the CPU, one frame
     valid = data.select_pats([2, 3, 4, 5, 6]).subset(out["valid_idx"][:1])
@@ -443,7 +471,187 @@ def phase_training(seed, workdir):
     print("  train-mode forward, card vs CPU: {} running variances agree to {:.2e} relative (<= 1e-4)".format(len(keys), rel))
     if not keys or rel > 1e-4:
         raise AssertionError("BatchNorm running variances differ between card and CPU")
-    return launches
+    return launches, ck_path
+
+
+def _seeded_member(cfg, seed, proj):
+    """A member of ``cfg``'s architecture whose convolutions are drawn from a
+    seeded ``torch.Generator`` (He-normal weights, zero biases), with its
+    BatchNorm running statistics then taken from the frames ``proj`` by
+    ``BN_CALIBRATION_FORWARDS`` train-mode forwards without a gradient. A
+    random net whose statistics stay at mean 0 and variance 1 grows its
+    activations level by level, and its logits then reach a scale at which
+    the card's and the CPU's rounding move the softmax by 1e-4; calibrated,
+    it has the scale of a trained member."""
+    from deepfluoro_tpu_torch.train.config import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(cfg)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu", generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+        model.to(proj.device).train()
+        for _ in range(BN_CALIBRATION_FORWARDS):
+            model(proj)
+    return model.eval()
+
+
+def _forward_flops(cfg):
+    """Floating-point operations of one member's eval forward of one padded
+    frame, counted by ``torch.utils.flop_counter`` on the meta device
+    (convolutions and matrix products; 2 per multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from deepfluoro_tpu_torch.train.config import build_model
+
+    model = build_model(cfg).to("meta").eval()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(torch.zeros((1, 1, cfg.proj_unet_dim, cfg.proj_unet_dim), device="meta"))
+    return counter.get_total_flops()
+
+
+def _consume(batches):
+    """Run an ``ensemble_batches`` generator to its end. Returns the
+    concatenated labels and heats, and the frames per second on the host's
+    clock from the first batch's arrival to the end (warm-up and the first
+    batch excluded; readback included)."""
+    labels, heats, t_first, n_first = [], [], None, 0
+    for _, lab, hts in batches:
+        if t_first is None:
+            t_first, n_first = time.perf_counter(), lab.shape[0]
+        labels.append(lab)
+        heats.append(hts)
+    rest = sum(l.shape[0] for l in labels) - n_first
+    fps = rest / (time.perf_counter() - t_first) if rest else float("nan")
+    return np.concatenate(labels), np.concatenate(heats), fps
+
+
+def _check_against_cpu(name, data, models, cpu_models, cfg):
+    """The card's ensemble (``ensemble_batches``, batches of 4, and
+    ``ensemble_forward`` for the mean seg) against the CPU's on the same
+    members and frames; then landmark detection and hard Dice on one
+    device against the other, on the same inputs."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.data.fixtures import DEFAULT_LAND_NAMES
+    from deepfluoro_tpu_torch.eval import detect_landmarks, hard_dice
+    from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward
+    from deepfluoro_tpu_torch.ops.heatmap import synthesize_heatmaps
+
+    hw = data.orig_img_shape
+    labels_d, heats_d, _ = _consume(ensemble_batches(data, models, cfg.num_lands, None, 4, cfg.proj_unet_dim))
+    proj = prepare_batch(AugmentConfig(proj_pad_dim=cfg.proj_unet_dim, prob_of_aug=0.0), None, torch.from_numpy(data.projs))["proj"]
+    seg_d = ensemble_forward(models, proj.to(DEVICE), hw, cfg.num_lands)[0].cpu()
+    seg_c, heats_c, labels_c = ensemble_forward(cpu_models, proj, hw, cfg.num_lands)
+    seg_err = float((seg_d - seg_c).abs().max())
+    heat_err = float(np.abs(heats_d - heats_c.numpy()).max())
+    differ = labels_d != labels_c.numpy()
+    top2 = torch.topk(seg_c, 2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    worst = float(margin[differ].max()) if differ.any() else 0.0
+    print("  {} (padded to {}^2): card vs CPU: mean seg max |diff| {:.2e} (<= 1e-3), heats {:.2e} (<= 1e-3), "
+          "labels differ on {:.4%} of pixels (< 0.1 %), largest CPU top-two margin there {:.2e} (<= 1e-4); "
+          "{:.4%} of pixels have a margin <= 1e-4".format(
+              name, proj.shape[-1], seg_err, heat_err, differ.mean(), worst, (margin <= 1e-4).mean()))
+    if tuple(labels_d.shape) != (len(data), *hw) or tuple(heats_d.shape) != (len(data), cfg.num_lands, *hw):
+        raise AssertionError("ensemble output shapes {} {}".format(labels_d.shape, heats_d.shape))
+    if int(labels_d.max()) >= cfg.num_classes or not np.isfinite(heats_d).all():
+        raise AssertionError("labels out of range or non-finite heats on " + name)
+    if seg_err > 1e-3 or heat_err > 1e-3 or differ.mean() >= 1e-3 or worst > 1e-4:
+        raise AssertionError("card and CPU ensembles disagree on " + name)
+
+    names = DEFAULT_LAND_NAMES[: cfg.num_lands]
+    true_heats = synthesize_heatmaps(torch.from_numpy(data.lands), *hw)
+    for what, heats, segs in (("ensemble heats and labels", heats_c, labels_c),
+                              ("true landmarks' heatmaps and label maps", true_heats, torch.from_numpy(data.segs))):
+        rows_c, cols_c = detect_landmarks(heats, names, segs)
+        rows_d, cols_d = detect_landmarks(heats.to(DEVICE), names, segs.to(DEVICE))
+        print("  {}: detect_landmarks on the {}: {} of {} found on the CPU, card equal: {}".format(
+            name, what, int((rows_c >= 0).sum()), rows_c.size, bool((rows_c == rows_d).all() and (cols_c == cols_d).all())))
+        if not ((rows_c == rows_d).all() and (cols_c == cols_d).all()):
+            raise AssertionError("landmark detection differs between card and CPU on " + name)
+    gt = torch.from_numpy(data.segs)
+    dice_c, dice_d = hard_dice(gt, labels_c, cfg.num_classes), hard_dice(gt.to(DEVICE), labels_c.to(DEVICE), cfg.num_classes)
+    print("  {}: hard Dice of the CPU's labels, card equal: {} (mean {:.4f})".format(
+        name, bool(np.array_equal(dice_c, dice_d)), float(dice_c.mean())))
+    if not np.array_equal(dice_c, dice_d):
+        raise AssertionError("hard Dice differs between card and CPU on " + name)
+    return heats_d, labels_d
+
+
+def phase_inference(seed, workdir, trained_ck, card):
+    """The ensemble on the card: members saved and reloaded, checked
+    against the CPU, then timed. The warp kernel is not on this path
+    (inference does no augmentation): its count must stay 0."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.data.fixtures import DEFAULT_LAND_NAMES, make_synthetic_data
+    from deepfluoro_tpu_torch.eval import detect_landmarks_timed
+    from deepfluoro_tpu_torch.infer import ensemble_batches, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train.checkpoint import save_checkpoint
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+
+    model, cfg = load_net_from_checkpoint(trained_ck, device=DEVICE)
+    models = [model]
+    frames = make_synthetic_data(num_specimens=1, num_projs=CHECK_FRAMES, img_dim=INFER_FRAME, seed=seed + 1)
+    odd = make_synthetic_data(num_specimens=1, num_projs=CHECK_FRAMES_ODD, img_dim=INFER_FRAME_ODD, seed=seed + 2)
+    calib = prepare_batch(AugmentConfig(proj_pad_dim=cfg.proj_unet_dim, prob_of_aug=0.0), None,
+                          torch.from_numpy(frames.projs).to(DEVICE))["proj"]
+    for i in range(1, ENSEMBLE_K):
+        path = os.path.join(workdir, "member_{}.pt".format(i))
+        save_checkpoint(path, cfg, _seeded_member(cfg, seed * 1000 + i, calib))
+        models.append(load_net_from_checkpoint(path, device=DEVICE, verbose=False)[0])
+    if not all(next(m.parameters()).device.type == DEVICE and not m.training for m in models):
+        raise AssertionError("a member is not on the card in eval mode")
+    flops = _forward_flops(cfg)
+    print("  {} members of depth {}, wf {}, {} classes, {} landmarks, {}^2 input; one member's forward of one "
+          "frame: {} floating-point operations (torch.utils.flop_counter), {} parameters".format(
+              len(models), cfg.depth, cfg.init_feats_exp, cfg.num_classes, cfg.num_lands, cfg.proj_unet_dim, flops,
+              sum(p.numel() for p in model.parameters())))
+    cpu_models = [copy.deepcopy(m).cpu() for m in models]
+    heats, labels = _check_against_cpu("{}^2 frames".format(INFER_FRAME), frames, models, cpu_models, cfg)
+    _check_against_cpu("{}^2 frames".format(INFER_FRAME_ODD), odd, models, cpu_models, cfg)
+    del cpu_models
+
+    # the timed runs: the main path of this phase, with the kernel counts at 0
+    warp.warp_launches = 0
+    latency = make_synthetic_data(num_specimens=1, num_projs=LATENCY_FRAMES, img_dim=INFER_FRAME, seed=seed + 3)
+    times = []
+    _consume(ensemble_batches(latency, models, cfg.num_lands, times, 1, cfg.proj_unet_dim))
+    print("  [{}] per-image latency at batch 1, K = {}, {}^2 -> {}^2, float32 (--times contract, {} frames): "
+          "median {:.3f} ms, min {:.3f} ms, max {:.3f} ms".format(
+              card, len(models), INFER_FRAME, cfg.proj_unet_dim, len(times), 1e3 * float(np.median(times)),
+              1e3 * min(times), 1e3 * max(times)))
+    bulk = make_synthetic_data(num_specimens=1, num_projs=THROUGHPUT_FRAMES, img_dim=INFER_FRAME, seed=seed + 4)
+    for k in (len(models), 1):
+        times = []
+        _, _, wall_fps = _consume(ensemble_batches(bulk, models[:k], cfg.num_lands, times, THROUGHPUT_BATCH, cfg.proj_unet_dim))
+        fps = len(times) / sum(times)
+        print("  [{}] ensemble frames/s at batch {}, K = {}, {}^2 -> {}^2, float32: {:.1f} by the --times contract "
+              "(pad, z-norm, forwards, mean, argmax; {} frames), {:.1f} with the readback of labels and heats; "
+              "convolutions at {:.2f} TFLOP/s, the float32 peak's bound {:.1f} frames/s".format(
+                  card, THROUGHPUT_BATCH, k, INFER_FRAME, cfg.proj_unet_dim, fps, len(times), wall_fps,
+                  fps * k * flops / 1e12, FP32_FLOPS_PER_S / (k * flops)))
+    launches = warp.warp_launches
+
+    heats, labels = torch.from_numpy(heats).to(DEVICE), torch.from_numpy(labels).to(DEVICE)
+    _, _, det_times = detect_landmarks_timed(heats, DEFAULT_LAND_NAMES[: cfg.num_lands], labels)
+    per_frame = det_times.sum(axis=1)
+    print("  [{}] landmark detection per frame ({} landmarks, {}^2, seg-gated, one dispatch per frame): "
+          "median {:.3f} ms over {} frames".format(card, cfg.num_lands, INFER_FRAME, 1e3 * float(np.median(per_frame)),
+                                                 len(per_frame)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print("  [{}] inference phase peak device memory less its baseline: {} bytes (max_memory_allocated {} bytes, "
+          "baseline {} bytes)".format(card, peak - baseline, peak, baseline))
+    print("  warp kernel launches during the timed inference runs: {} (no kernel on this path)".format(launches))
+    if launches != 0:
+        raise AssertionError("inference launched the warp kernel")
 
 
 def main(argv=None) -> int:
@@ -461,8 +669,9 @@ def main(argv=None) -> int:
             ("1 environment", phase_environment),
             ("2 build", phase_build),
             ("3 kernel vs plain", lambda: phase_kernel_check(args.seed)),
-            ("4 training", lambda: phase_training(args.seed, workdir)),
-            ("5 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("4 training", lambda: phase_training(args.seed, workdir, results["1 environment"])),
+            ("5 inference", lambda: phase_inference(args.seed, workdir, results["4 training"][1], results["1 environment"])),
+            ("6 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -474,7 +683,7 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     kernel = dict(results["3 kernel vs plain"][1])
-    kernel["launches"] = results["4 training"]
+    kernel["launches"] = results["4 training"][0]
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

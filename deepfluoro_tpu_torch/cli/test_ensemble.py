@@ -1,0 +1,94 @@
+"""Ensemble segmentation and heatmap estimation CLI (JAX counterpart:
+``deepfluoro_tpu/cli/test_ensemble.py``; contract of reference
+test_ensemble.py:20-148):
+
+  python -m deepfluoro_tpu_torch.cli.test_ensemble ipcai_2020_ds_8x.h5 \\
+    spec_1_test.h5 --pats 1 --nets yy_best_net.pt [more.pt ...] \\
+    [--times times.txt] [--no-gpu] [--batch-size N]
+
+Writes ``nn-segs`` (u1, gzip 9), ``nn-heats`` and the ``land-names`` group
+to the output HDF5, and optionally one line of seconds per image. Runs on
+CUDA with TF32 off (the recipe is float32); without a card it refuses
+unless given ``--no-gpu``. Not ported: ``--ensemble-devices``,
+``--dp-devices``, ``--int8*`` and ``--profile-dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from deepfluoro_tpu_torch.data.hdf5 import get_land_names_from_dataset, load_dataset, write_land_names
+from deepfluoro_tpu_torch.infer.ensemble import load_net_from_checkpoint, seg_dataset_ensemble
+from deepfluoro_tpu_torch.utils.io import write_floats_to_txt
+from deepfluoro_tpu_torch.utils.platform import get_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Run ensemble segmentation and heatmap estimation.",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument("input_data_file_path", help="input HDF5 archive with the test projections", type=str)
+    parser.add_argument("output_data_file_path", help="output HDF5 file for nn-segs / nn-heats", type=str)
+    parser.add_argument("--nets", help="checkpoint files of the ensemble members", type=str, nargs="+", required=True)
+    parser.add_argument("--pats", help="comma-separated specimen IDs to run inference on", type=str, required=True)
+    parser.add_argument("--no-gpu", help="run on the CPU", action="store_true")
+    parser.add_argument("--times", help="write per-image inference seconds to this file", type=str, default="")
+    parser.add_argument("--batch-size", help="Images per inference batch (1 matches the reference's timing granularity)", type=int, default=1)
+    return parser
+
+
+def main(argv=None):
+    import h5py
+
+    args = build_parser().parse_args(argv)
+    dev = get_device("cpu" if args.no_gpu else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    test_pats = [int(i) for i in args.pats.split(",")]
+
+    models = []
+    cfg = None
+    for net_path in args.nets:
+        print("  loading state from disk for: {}".format(net_path))
+        model, net_cfg = load_net_from_checkpoint(net_path, device=dev)
+        models.append(model)
+        # members that disagree here would run at the wrong padded size
+        if cfg is not None:
+            for field in ("num_lands", "proj_unet_dim", "num_classes"):
+                a, b = getattr(cfg, field), getattr(net_cfg, field)
+                if a != b:
+                    raise ValueError("ensemble members disagree on {}: {} vs {} ({})".format(field, a, b, net_path))
+        cfg = net_cfg
+
+    land_names = None
+    if cfg.num_lands > 0:
+        land_names = get_land_names_from_dataset(args.input_data_file_path)
+        if len(land_names) != cfg.num_lands:
+            raise ValueError("the archive names {} landmarks, the nets {}".format(len(land_names), cfg.num_lands))
+
+    print("initializing testing dataset")
+    test_data = load_dataset(args.input_data_file_path, test_pats, no_seg=True)
+    print("Length of testing dataset: {}".format(len(test_data)))
+
+    print("opening destination file for writing")
+    times: list[float] = []
+    with h5py.File(args.output_data_file_path, "w") as f:
+        if land_names:
+            write_land_names(f, land_names)
+        print("running network on projections")
+        seg_dataset_ensemble(
+            test_data, models, f, num_lands=cfg.num_lands, times=times, batch_size=args.batch_size,
+            pad_img_dim=cfg.proj_unet_dim, num_classes=cfg.num_classes,
+        )
+        print("closing file...")
+
+    if args.times:
+        write_floats_to_txt(args.times, times)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData, mark_oob_landmarks_inf
+from deepfluoro_tpu_torch.eval.landmarks import SEG_LABELS_TO_USE_FOR_LANDS
 
 # 14 bilateral landmark names as in the real archives (README.md:45-54)
 DEFAULT_LAND_NAMES = [
@@ -24,20 +25,6 @@ DEFAULT_LAND_NAMES = [
     "IPS-l", "IPS-r",
     "ASIS-l", "ASIS-r",
 ]
-
-# landmark name -> seg class gating its detection (JAX package:
-# eval/landmarks.py; reference est_lands_csv.py:56-73)
-SEG_LABELS_TO_USE_FOR_LANDS = {
-    "FH-l": 5, "FH-r": 6,
-    "GSN-l": 1, "GSN-r": 2,
-    "IOF-l": 1, "IOF-r": 2,
-    "MOF-l": 1, "MOF-r": 2,
-    "SPS-l": 1, "SPS-r": 2,
-    "IPS-l": 1, "IPS-r": 2,
-    "ASIS-l": 1, "ASIS-r": 2,
-    "PSIS-l": 1, "PSIS-r": 2,
-    "PIIS-l": 1, "PIIS-r": 2,
-}
 
 
 def _ellipse_mask(h, w, cy, cx, ry, rx):

@@ -66,11 +66,42 @@ class FluoroData:
         return self.subset(rows)
 
 
+def get_orig_img_shape(h5_file_path: str, pat_ind: int) -> tuple[int, int]:
+    """(rows, cols) of a specimen's projections (reference dataset.py:330-337)."""
+    import h5py
+
+    with h5py.File(h5_file_path, "r") as f:
+        s = f["{:02d}/projs".format(pat_ind)].shape
+    assert len(s) == 3
+    return (s[1], s[2])
+
+
 def get_num_lands_from_dataset(h5_file_path: str) -> int:
     import h5py
 
     with h5py.File(h5_file_path, "r") as f:
         return int(f["land-names/num-lands"][()])
+
+
+def get_land_names_from_dataset(h5_file_path: str) -> list[str]:
+    """The archive's landmark names in index order (stored as bytes or str)."""
+    import h5py
+
+    with h5py.File(h5_file_path, "r") as f:
+        names = []
+        for li in range(int(f["land-names/num-lands"][()])):
+            s = f["land-names/land-{:02d}".format(li)][()]
+            names.append(s.decode() if isinstance(s, (bytes, np.bytes_)) else str(s))
+    return names
+
+
+def write_land_names(h5_file, land_names: Sequence[str]) -> None:
+    """Write the land-names group into an open h5py file (contract of
+    reference test_ensemble.py:124-129)."""
+    g = h5_file.create_group("land-names")
+    g["num-lands"] = len(land_names)
+    for li, name in enumerate(land_names):
+        g["land-{:02d}".format(li)] = name
 
 
 def mark_oob_landmarks_inf(lands: np.ndarray, img_shape_hw: tuple[int, int]) -> np.ndarray:
@@ -86,10 +117,11 @@ def mark_oob_landmarks_inf(lands: np.ndarray, img_shape_hw: tuple[int, int]) -> 
     return lands
 
 
-def load_dataset(h5_file_path: str, pat_inds: Sequence[int]) -> FluoroData:
+def load_dataset(h5_file_path: str, pat_inds: Sequence[int], no_seg: bool = False) -> FluoroData:
     """All projections, segmentations and landmarks of the given specimens
     (reference dataset.py:368-512 minus the host-side one-hot and the
-    min-max scaling, which training does not use)."""
+    min-max scaling, which training does not use). ``no_seg`` leaves the
+    segmentations unread, as inference reads a test archive."""
     import h5py
 
     all_projs, all_segs, all_lands, all_pats = [], [], [], []
@@ -110,7 +142,7 @@ def load_dataset(h5_file_path: str, pat_inds: Sequence[int]) -> FluoroData:
                 all_lands.append(mark_oob_landmarks_inf(cur_lands, orig_img_shape))
             all_projs.append(cur_projs)
             all_pats.append(np.full(cur_projs.shape[0], pat_idx, np.int64))
-            if "segs" in pat_g:
+            if not no_seg and "segs" in pat_g:
                 cur_segs = pat_g["segs"][:]
                 assert cur_segs.ndim == 3
                 all_segs.append(cur_segs.astype(np.uint8))

@@ -1,0 +1,272 @@
+"""Ensemble inference (JAX counterpart: ``deepfluoro_tpu/infer/ensemble.py``,
+itself after reference util.py:167-377 and test_ensemble.py).
+
+Each member is rebuilt from its checkpoint alone. For every batch of
+frames: reflect-pad and z-norm (the no-augmentation ``prepare_batch``), K
+plain forwards, each member's output center-cropped to the frame and its
+heatmaps min-max normalized per image over all landmarks, the mean over
+the members, and the argmax of the mean as uint8 labels. The results go to
+``nn-segs`` (u1) and ``nn-heats`` in an HDF5 file, gzip 9, one chunk per
+image (per image and landmark for the heats).
+
+The JAX package unrolls the K forwards into one program instead of
+vmapping over stacked weights (grouped convolutions tile badly,
+``map_over_nets``); here they are K eager forwards through cuDNN. The
+device work is a generator of host batches (``ensemble_batches``), so it
+runs where h5py is not installed; ``write_ensemble_outputs`` consumes it
+into the file.
+
+Not ported: the ``mesh``, ``quantized``, ``calib_batches`` and
+``int8_float_levels`` arguments, and loading the JAX package's msgpack
+checkpoints.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+from deepfluoro_tpu_torch.data.hdf5 import FluoroData
+from deepfluoro_tpu_torch.data.pipeline import BatchIterator
+from deepfluoro_tpu_torch.ops.image import center_crop
+from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
+from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
+from deepfluoro_tpu_torch.utils.platform import get_device
+
+
+def _count_keys(state_dict, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in state_dict:
+        n += 1
+    return n
+
+
+def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
+    """Rebuild ``(model, cfg)`` from a checkpoint file alone (contract of
+    reference test_ensemble.py:61-107): the port's own checkpoints and the
+    reference's ``train.py`` files share the ``.pt`` layout, as do those
+    the JAX package's ``compat/torch_import.py::export_torch_checkpoint``
+    writes. The model is in eval mode on ``device`` (default CUDA).
+
+    Checkpoints do not store the landmark head's shape; it is read from
+    the state-dict keys (``lands_block.*``, ``lands_1x1.*``), as the JAX
+    package's importer does. A ``.pt`` file is a pickle that may hold
+    other objects than tensors (numpy scalars in a scheduler state), so it
+    is loaded in full, as the reference and the JAX package load it: load
+    only files you trust."""
+    dev = get_device(device)
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    meta = {k: v for k, v in ck.items() if not k.endswith("state-dict") and k != "loss"}
+    cfg = TrainConfig.from_checkpoint_meta(meta)
+    sd = ck["model-state-dict"]
+    if verbose:
+        print("  loading unet params from torch (reference) checkpoint...")
+        print("             num. classes: {}".format(cfg.num_classes))
+        print("                    depth: {}".format(cfg.depth))
+        print("        init. feats. exp.: {}".format(cfg.init_feats_exp))
+        print("              batch norm.: {}".format(cfg.batch_norm))
+        print("    reflect pad img. dim.: {}".format(cfg.proj_unet_dim))
+        print("              num. lands.: {}".format(cfg.num_lands))
+    head = {}
+    if cfg.num_lands > 0:
+        head = dict(
+            lands_block_depth=_count_keys(sd, "lands_block.{}.weight"),
+            lands_num_1x1=_count_keys(sd, "lands_1x1.{}.weight"),
+        )
+    model = build_model(cfg, **head)
+    model.load_state_dict(sd)
+    return model.to(dev).eval(), cfg
+
+
+def _crop_output(out, orig_hw, num_lands: int):
+    """One member's forward output, center-cropped to the frame: (seg,
+    heats or None), NCHW."""
+    seg, heats = out if num_lands > 0 else (out, None)
+    return center_crop(seg, orig_hw), None if heats is None else center_crop(heats, orig_hw)
+
+
+def postprocess_net_output(out, orig_hw, num_lands: int):
+    """Crop one member's forward output to the frame and min-max normalize
+    its heatmaps per image over all landmarks at once (reference
+    util.py:345-356: ``.min()``/``.max()`` of the image's (1, L, H, W))."""
+    seg, heats = _crop_output(out, orig_hw, num_lands)
+    if heats is not None:
+        hmin = heats.amin(dim=(1, 2, 3), keepdim=True)
+        hmax = heats.amax(dim=(1, 2, 3), keepdim=True)
+        heats = (heats - hmin) / (hmax - hmin)
+    return seg, heats
+
+
+def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
+    """The mean over members of ``post(model(proj), orig_hw, num_lands)``:
+    (seg, heats or None), one plain forward per member."""
+    seg_sum = heat_sum = None
+    for model in models:
+        seg, heats = post(model(proj), orig_hw, num_lands)
+        seg_sum = seg if seg_sum is None else seg_sum + seg
+        if heats is not None:
+            heat_sum = heats if heat_sum is None else heat_sum + heats
+    k = len(models)
+    return seg_sum / k, None if heat_sum is None else heat_sum / k
+
+
+@torch.no_grad()
+def ensemble_forward(models, proj: torch.Tensor, orig_hw, num_lands: int):
+    """(prepared ``proj`` (B, 1, Hp, Wp)) -> (mean softmax seg (B, C, H, W),
+    mean normalized heats (B, L, H, W) or None, argmax labels (B, H, W)
+    uint8). K plain forwards, one per member; the members must be in eval
+    mode (``load_net_from_checkpoint`` returns them so)."""
+    avg_seg, avg_heats = _member_mean(models, proj, orig_hw, num_lands, postprocess_net_output)
+    return avg_seg, avg_heats, avg_seg.argmax(dim=1).to(torch.uint8)
+
+
+def _device_of(models) -> torch.device:
+    return next(models[0].parameters()).device
+
+
+def ensemble_batches(
+    data: FluoroData,
+    models,
+    num_lands: int = 0,
+    times: list | None = None,
+    batch_size: int = 1,
+    pad_img_dim: int = 0,
+    num_classes: int = 7,
+):
+    """Yield ``(start, labels (b, H, W) uint8, heats (b, L, H, W) float32 or
+    None)`` numpy batches over ``data`` in order, the final partial batch
+    included, on the members' device.
+
+    With ``times`` each image gets its batch's wall-clock divided by the
+    batch size: pad, z-norm, the K forwards and the mean, up to a
+    synchronise inside the timed region; the readback falls outside. Every
+    batch shape, the final partial one too, runs once before timing, so
+    no first-call cost lands in it."""
+    dev = _device_of(models)
+    orig_hw = data.orig_img_shape
+    n = len(data)
+    aug_cfg = AugmentConfig(num_classes=num_classes, proj_pad_dim=pad_img_dim, prob_of_aug=0.0, include_heat_map=False)
+
+    def run(projs):
+        return ensemble_forward(models, prepare_batch(aug_cfg, None, projs)["proj"], orig_hw, num_lands)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for model in models:
+        model.eval()
+    it = BatchIterator(data, batch_size=batch_size, device=dev)
+    for warm_b in {min(batch_size, n), n % batch_size} - {0}:
+        run(it.projs[:warm_b])
+    sync()
+
+    start = 0
+    for projs, _, _ in it.epoch():
+        b = int(projs.shape[0])
+        t0 = time.perf_counter()
+        _, avg_heats, labels = run(projs)
+        sync()
+        elapsed = time.perf_counter() - t0
+        if times is not None:
+            times.extend([elapsed / b] * b)
+        yield start, labels.cpu().numpy(), None if avg_heats is None else avg_heats.cpu().numpy()
+        start += b
+
+
+def write_ensemble_outputs(h5_f, batches, n: int, orig_hw, num_lands: int) -> None:
+    """Write ``ensemble_batches``' output into an open h5py file:
+    ``nn-segs`` (n, H, W) u1 with chunks (1, H, W) and, with landmarks,
+    ``nn-heats`` (n, L, H, W) with chunks (1, 1, H, W), both gzip 9
+    (reference util.py:293-377)."""
+    segs_ds = h5_f.create_dataset(
+        "nn-segs", (n, *orig_hw), dtype="u1", chunks=(1, *orig_hw), compression="gzip", compression_opts=9
+    )
+    heats_ds = None
+    if num_lands > 0:
+        heats_ds = h5_f.create_dataset(
+            "nn-heats", (n, num_lands, *orig_hw), chunks=(1, 1, *orig_hw), compression="gzip", compression_opts=9
+        )
+    written = 0
+    for start, labels, heats in batches:
+        segs_ds[start : start + labels.shape[0]] = labels
+        if heats_ds is not None:
+            heats_ds[start : start + heats.shape[0]] = heats
+        written = start + labels.shape[0]
+    if written != n:
+        raise RuntimeError("wrote {} of {} images".format(written, n))
+
+
+def seg_dataset_ensemble(
+    data: FluoroData,
+    models,
+    h5_f,
+    num_lands: int = 0,
+    times: list | None = None,
+    batch_size: int = 1,
+    pad_img_dim: int = 0,
+    num_classes: int = 7,
+) -> None:
+    """Run the ensemble over ``data`` and write ``nn-segs``/``nn-heats``
+    into the open h5py file ``h5_f`` (reference util.py:293-377).
+    ``models``: the members from ``load_net_from_checkpoint``, all of one
+    architecture and on one device."""
+    batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes)
+    write_ensemble_outputs(h5_f, batches, len(data), data.orig_img_shape, num_lands)
+
+
+def seg_dataset(
+    data: FluoroData,
+    model,
+    h5_f,
+    num_lands: int = 0,
+    batch_size: int = 1,
+    pad_img_dim: int = 0,
+    num_classes: int = 7,
+) -> None:
+    """One network as an ensemble of one (reference util.py:243-291). The
+    reference's single-net path does not min-max normalize the heatmaps;
+    like the JAX package this one does (monotonic per image, so landmark
+    decoding is unchanged)."""
+    seg_dataset_ensemble(
+        data, [model], h5_f, num_lands=num_lands, batch_size=batch_size, pad_img_dim=pad_img_dim,
+        num_classes=num_classes,
+    )
+
+
+@torch.no_grad()
+def test_dataset_ensemble(
+    data: FluoroData,
+    models,
+    num_lands: int = 0,
+    dice_only: bool = False,
+    batch_size: int = 1,
+    pad_img_dim: int = 0,
+    num_classes: int = 7,
+    heat_coeff: float = 0.5,
+):
+    """Ensemble validation loss (reference util.py:167-241): the mean over
+    members of each image's seg and heatmaps, then the per-image joint loss
+    (or the dice term alone) -> (mean, std with N-1) over the images.
+    As in the reference, this path does not min-max normalize the members'
+    heatmaps (util.py:216-222)."""
+    dev = _device_of(models)
+    orig_hw = data.orig_img_shape
+    use_lands = num_lands > 0 and not dice_only
+    aug_cfg = AugmentConfig(num_classes=num_classes, proj_pad_dim=pad_img_dim, prob_of_aug=0.0, include_heat_map=use_lands)
+    for model in models:
+        model.eval()
+    it = BatchIterator(data, batch_size=batch_size, device=dev)
+    losses = []
+    for projs, segs, lands in it.epoch():
+        prepared = prepare_batch(aug_cfg, None, projs, segs, lands)
+        avg_seg, avg_heats = _member_mean(models, prepared["proj"], orig_hw, num_lands, _crop_output)
+        if use_lands:
+            losses.append(per_sample_joint(avg_seg, avg_heats, prepared["seg"], prepared["heats"], heat_coeff))
+        else:
+            losses.append(per_sample_dice(avg_seg, prepared["seg"], skip_bg=False))
+    losses = torch.cat(losses).cpu().numpy()
+    std = float(losses.std(ddof=1)) if losses.size > 1 else 0.0
+    return float(losses.mean()), std

@@ -4,8 +4,11 @@ libraries and load them with ``ctypes``.
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so one build takes seconds. The library goes to
 ``build/deepfluoro_tpu_torch/`` at the repository root (listed in
-``.gitignore``) under a name keyed by a hash of the source and the flags:
-it is built at first use after each source change and reused after that.
+``.gitignore``) when the package sits in a writable checkout, and to the
+per-user cache (``$XDG_CACHE_HOME/deepfluoro_tpu_torch``, else
+``~/.cache/deepfluoro_tpu_torch``) when it is installed, under a name keyed
+by a hash of the source and the flags: it is built at first use after each
+source change and reused after that.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepfluoro_tpu_torch"
+_ROOT = Path(__file__).resolve().parents[2]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,10 +41,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def build_dir(root: Path = _ROOT) -> Path:
+    """``root/build/deepfluoro_tpu_torch`` when ``root``, the package's
+    parent directory, is a checkout (it holds ``pyproject.toml``) that this
+    user may write; otherwise the per-user cache, since an installed
+    package's parent is a site-packages directory."""
+    if (root / "pyproject.toml").is_file() and os.access(root, os.W_OK):
+        return root / "build" / "deepfluoro_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "deepfluoro_tpu_torch"
+
+
 def library_path(name: str) -> Path:
     src = _CSRC / "{}.cu".format(name)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / "{}_{}.so".format(name, digest)
+    return build_dir() / "{}_{}.so".format(name, digest)
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -52,7 +66,7 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
     so = library_path(name)
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name("{}.{}.tmp".format(so.name, os.getpid()))
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "{}.cu".format(name))]
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -101,8 +101,10 @@ class TrainConfig:
         return cfg
 
 
-def build_model(cfg: TrainConfig) -> UNet:
-    """The U-Net train.py:313 builds from these flags."""
+def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> UNet:
+    """The U-Net train.py:313 builds from these flags. The landmark head's
+    shape is not among them (train.py leaves it at its defaults); a loader
+    passes the shape a checkpoint's keys show."""
     return UNet(
         n_classes=cfg.num_classes,
         depth=cfg.depth,
@@ -113,4 +115,6 @@ def build_model(cfg: TrainConfig) -> UNet:
         num_lands=cfg.num_lands,
         do_res=cfg.use_res,
         block_depth=cfg.block_depth,
+        lands_block_depth=lands_block_depth,
+        lands_num_1x1=lands_num_1x1,
     )

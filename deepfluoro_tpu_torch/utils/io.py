@@ -1,4 +1,4 @@
-"""Text stream writers for loss logs (JAX counterpart:
+"""Float text files: loss logs and per-image times (JAX counterpart:
 ``deepfluoro_tpu/utils/io.py``).
 
 File contracts match the reference exactly ('{:.6f}\\n' lines, flushed per
@@ -6,6 +6,12 @@ write, append mode on resume): util.py:53-89, train.py:365-367.
 """
 
 from __future__ import annotations
+
+
+def write_floats_to_txt(file_path: str, floats) -> None:
+    with open(file_path, "w") as out:
+        for x in floats:
+            out.write("{:.6f}\n".format(float(x)))
 
 
 def read_floats_from_txt(file_path: str):

@@ -63,3 +63,87 @@ def test_main_path_never_calls_the_yardstick():
     for path in files:
         text = path.read_text()
         assert "grid_sample_warp" not in text and "grid_sample(" not in text, path
+
+
+INFER_EVAL_MODULES = [
+    "deepfluoro_tpu_torch.infer",
+    "deepfluoro_tpu_torch.infer.ensemble",
+    "deepfluoro_tpu_torch.eval",
+    "deepfluoro_tpu_torch.eval.dice",
+    "deepfluoro_tpu_torch.eval.landmarks",
+    "deepfluoro_tpu_torch.cli.test_ensemble",
+    "deepfluoro_tpu_torch.cli.est_lands_csv",
+    "deepfluoro_tpu_torch.cli.compute_actual_dice_on_test",
+]
+
+
+def test_inference_and_eval_modules_import_no_jax_stack_or_h5py():
+    """The modules of the inference slice, imported one after another in a
+    fresh interpreter, load nothing of the JAX stack, nothing of the JAX
+    package, and no h5py or PIL (only the modules each import adds count)."""
+    import subprocess
+    import sys
+
+    for mod in INFER_EVAL_MODULES:
+        path = ROOT / mod.replace(".", "/")
+        assert path.with_suffix(".py") in FILES or path / "__init__.py" in FILES, mod
+    code = (
+        "import importlib, sys\n"
+        "added = {{}}\n"
+        "for mod in {!r}:\n"
+        "    before = set(sys.modules)\n"
+        "    importlib.import_module(mod)\n"
+        "    added[mod] = sorted({{m.split('.')[0] for m in set(sys.modules) - before}})\n"
+        "print(added)\n"
+    ).format(INFER_EVAL_MODULES)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True).stdout
+    added = ast.literal_eval(out.strip().splitlines()[-1])
+    assert "torch" in added[INFER_EVAL_MODULES[0]]
+    for mod, loaded in added.items():
+        assert not set(loaded) & set(FORBIDDEN + LAZY_ONLY), (mod, loaded)
+
+
+def test_wheel_ships_the_kernel_sources():
+    """An installed package builds its kernels from csrc/*.cu, so the
+    package data must name them, and the glob must match every source."""
+    import fnmatch
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert any(fnmatch.fnmatch("deepfluoro_tpu_torch", p) for p in conf["tool"]["setuptools"]["packages"]["find"]["include"])
+    globs = conf["tool"]["setuptools"]["package-data"]["deepfluoro_tpu_torch"]
+    sources = sorted(p.relative_to(ROOT / "deepfluoro_tpu_torch").as_posix() for p in (ROOT / "deepfluoro_tpu_torch" / "csrc").iterdir())
+    assert sources and all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources), (sources, globs)
+
+
+@pytest.mark.parametrize("layout", ["writable-checkout", "read-only-checkout", "installed"])
+@pytest.mark.parametrize("xdg", [True, False], ids=["xdg-cache-home", "home-cache"])
+def test_build_dir_is_the_checkout_or_the_user_cache(tmp_path, monkeypatch, layout, xdg):
+    """The library goes to build/ of a writable checkout; beside an
+    installed package, or in a checkout this user cannot write, to
+    $XDG_CACHE_HOME/deepfluoro_tpu_torch, else ~/.cache/deepfluoro_tpu_torch.
+    Nothing is built."""
+    import os
+
+    from deepfluoro_tpu_torch.ops import _build
+
+    root = tmp_path / "root"
+    root.mkdir()
+    if layout != "installed":
+        (root / "pyproject.toml").write_text("[project]\n")
+    if layout == "read-only-checkout":
+        real_access = os.access
+        monkeypatch.setattr(_build.os, "access", lambda p, mode: False if pathlib.Path(p) == root else real_access(p, mode))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if xdg:
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+    want = {
+        "writable-checkout": root / "build" / "deepfluoro_tpu_torch",
+        "read-only-checkout": tmp_path / ("xdg" if xdg else "home/.cache") / "deepfluoro_tpu_torch",
+        "installed": tmp_path / ("xdg" if xdg else "home/.cache") / "deepfluoro_tpu_torch",
+    }[layout]
+    assert _build.build_dir(root) == want
+    assert not (tmp_path / "xdg").exists() and not (tmp_path / "home").exists() and not (root / "build").exists()
+    assert _build.build_dir() == _build._ROOT / "build" / "deepfluoro_tpu_torch"
