@@ -39,13 +39,30 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      per-image latency at batch 1, frames/s at batch 64 for K = 6 and
      K = 1, the phase's peak memory less its baseline and the landmark
      detection time per frame;
-  6. profiler: ``torch.profiler``'s device time of the pair at each
+  6. resume and stream: ``fit`` on phase 4's recipe and data for 1 epoch,
+     then resumed to 2 from its checkpoint (the split reused, the loss logs
+     appended, the restored weights and optimizer state on the card); a run
+     that receives SIGTERM at its second step, which stops after that
+     epoch with a checkpoint and writes a light best net (< 0.75 of the
+     checkpoint's size); ``stream_data=True`` against the resident feed,
+     augmentation off and ``cudnn.deterministic`` on, per-step losses
+     within 1e-4 relative; one warp launch per augmented step;
+  7. folds: ``fit_multifold`` over specimens 1-6 (K = 6) at the same width,
+     2 epochs, then resumed to a third; one warp launch per lockstep step
+     (K*B = 30 frames); lockstep steps/s, fold-steps/s and the phase's
+     peak memory less its baseline; the warp pair at 30 frames of
+     180^2 -> 192^2 against its plain version (phase 3's tolerances) and
+     timed; the six best nets loaded through ``load_net_from_checkpoint``;
+     one lockstep step on the card against the CPU from the same weights
+     and batch, augmentation off, every fold's loss within 1e-3 relative;
+  8. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
 line. On success the line before the last is a JSON object describing the
-kernel (with its times at every geometry), and the last line is
+kernel (with its times at every geometry and its launches on each path:
+training, resume and stream, folds), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -57,6 +74,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -98,6 +116,13 @@ THROUGHPUT_BATCH = 64
 THROUGHPUT_FRAMES = 256
 BN_CALIBRATION_FORWARDS = 20  # train-mode forwards that set a seeded member's BatchNorm statistics
 DEVICE = "cuda"
+
+# the training phases' recipe and data (the 8x paper recipe at full width)
+TRAIN_FRAME = 180
+TRAIN_PAD = 192
+TRAIN_DEPTH = 6
+TRAIN_WF = 5
+FOLD_PATS = [1, 2, 3, 4, 5, 6]  # K = 6 leave-one-specimen-out folds
 
 
 def _run(cmd):
@@ -370,19 +395,37 @@ def phase_profiler(pairs, kernel):
           "(the BatchNorm running-variance correction)".format(len(kernels), len(foreach)))
 
 
-def phase_training(seed, workdir, card):
+def _smoke_data(seed):
+    """The in-memory synthetic archive of the training phases: 6 specimens
+    of 7 frames of TRAIN_FRAME^2."""
     from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+
+    return make_synthetic_data(num_specimens=6, num_projs=7, img_dim=TRAIN_FRAME, seed=seed)
+
+
+def _recipe_cfg(data, seed, **kw):
+    """The 8x paper recipe (reference train_test_code/Readme.md:14-17) at
+    full width: depth 6, wf 5, TRAIN_PAD^2 input, batch 5, Nesterov SGD,
+    plateau LR, augmentation, a 0.85 train/valid split."""
+    from deepfluoro_tpu_torch.train import TrainConfig
+
+    base = dict(
+        num_classes=7, batch_size=5, proj_unet_dim=TRAIN_PAD, optim_type="sgd", init_lr=0.1, nesterov=True,
+        momentum=0.9, wgt_decay=1e-4, lr_sched_meth="plateau", depth=TRAIN_DEPTH, init_feats_exp=TRAIN_WF,
+        batch_norm=True, padding=True, no_max_pool=True, data_aug=True, num_lands=data.num_lands, heat_coeff=0.5,
+        train_valid_split=0.85, checkpoint_freq=1, seed=seed,
+    )
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def phase_training(seed, workdir, card):
     from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
     from deepfluoro_tpu_torch.ops import warp
-    from deepfluoro_tpu_torch.train import TrainConfig, fit, load_checkpoint
+    from deepfluoro_tpu_torch.train import fit, load_checkpoint
 
-    data = make_synthetic_data(num_specimens=6, num_projs=7, img_dim=180, seed=seed)
-    cfg = TrainConfig(
-        num_classes=7, batch_size=5, proj_unet_dim=192, optim_type="sgd", init_lr=0.1, nesterov=True,
-        momentum=0.9, wgt_decay=1e-4, lr_sched_meth="plateau", depth=6, init_feats_exp=5, batch_norm=True,
-        padding=True, no_max_pool=True, data_aug=True, num_lands=data.num_lands, heat_coeff=0.5,
-        train_valid_split=0.85, checkpoint_freq=1, max_num_epochs=2, seed=seed,
-    )
+    data = _smoke_data(seed)
+    cfg = _recipe_cfg(data, seed, max_num_epochs=2)
     ck_path = os.path.join(workdir, "check_net.pt")
     torch.cuda.reset_peak_memory_stats()
     before_fit = torch.cuda.memory_allocated()
@@ -429,9 +472,13 @@ def phase_training(seed, workdir, card):
     print("  checkpoint {} holds epoch {} and {} tensors".format(os.path.basename(ck_path), ck["epoch"], len(sd)))
 
     sec = out["step_seconds"][1:]
+    per_epoch = n_steps // cfg.max_num_epochs
+    first_epoch, second_epoch = out["step_seconds"][1:per_epoch], out["step_seconds"][per_epoch:]
     print("  [{}] train steps/s over the batch loops after the first step: {:.3f} "
-          "(first step {:.3f} s, then median {:.4f} s/step)".format(
-        card, len(sec) / sum(sec), out["step_seconds"][0], float(np.median(sec))))
+          "(first step {:.3f} s, then median {:.4f} s/step); epoch 1 after its first step {:.3f}, epoch 2 "
+          "(while epoch 1's checkpoint is written) {:.3f}".format(
+        card, len(sec) / sum(sec), out["step_seconds"][0], float(np.median(sec)),
+        len(first_epoch) / sum(first_epoch), len(second_epoch) / sum(second_epoch)))
     peak = torch.cuda.max_memory_allocated()
     print("  [{}] fit's peak device memory less its baseline: {} bytes (max_memory_allocated {} bytes, "
           "of which {} were allocated before fit: phase 3's inputs, kept for phase 6)".format(
@@ -654,6 +701,227 @@ def phase_inference(seed, workdir, trained_ck, card):
         raise AssertionError("inference launched the warp kernel")
 
 
+def _card(card):
+    return "[{}]".format(card)
+
+
+def _sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fit_files(workdir, tag):
+    return {k: os.path.join(workdir, "{}_{}".format(tag, v)) for k, v in dict(
+        checkpoint_filename="ck.pt", best_valid_filename="best.pt", train_loss_txt="train.txt",
+        valid_loss_txt="valid.txt").items()}
+
+
+def _lines(path):
+    with open(path) as f:
+        return len(f.readlines())
+
+
+def phase_resume_and_stream(seed, workdir, card):
+    """``fit`` on the 8x recipe beyond a fresh run: 1 epoch, then resumed to
+    2 from its checkpoint; a run stopped by SIGTERM in its first epoch,
+    with light best nets; the streaming feed against the resident one with
+    augmentation off and deterministic cuDNN. Returns the warp launches of
+    the augmented runs, which must be 1 per step."""
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train import fit, load_checkpoint
+    from deepfluoro_tpu_torch.train import loop as loop_mod
+
+    data = _smoke_data(seed)
+    pats = [2, 3, 4, 5, 6]
+    files = _fit_files(workdir, "resume")
+    warp.warp_launches = 0
+    first = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE, **files)
+    resumed = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=2), verbose=False, device=DEVICE, **files)
+    _sync()
+    launches = warp.warp_launches
+    steps = len(first["train_losses"]) + len(resumed["train_losses"])
+    ck = load_checkpoint(files["checkpoint_filename"])
+    opt_state = [t for st in resumed["optimizer"].state.values() for t in st.values() if torch.is_tensor(t)]
+    print("  resume: epoch {} -> {}, split reused: {}, loss logs {} + {} train lines and {} valid lines, "
+          "{} parameters and {} optimizer tensors on {}".format(
+              first["epoch"], resumed["epoch"], resumed["train_idx"] == first["train_idx"],
+              len(first["train_losses"]), len(resumed["train_losses"]), _lines(files["valid_loss_txt"]),
+              sum(1 for _ in resumed["model"].parameters()), len(opt_state), DEVICE))
+    if (first["epoch"], resumed["epoch"], ck["epoch"]) != (1, 2, 2) or resumed["train_idx"] != first["train_idx"]:
+        raise AssertionError("the resumed run did not go on from its checkpoint")
+    if _lines(files["train_loss_txt"]) != steps or _lines(files["valid_loss_txt"]) != 2:
+        raise AssertionError("the resumed run's loss logs were not appended to")
+    if not opt_state or not all(t.device.type == DEVICE for t in list(resumed["model"].state_dict().values()) + opt_state):
+        raise AssertionError("a restored tensor is off the card")
+
+    # SIGTERM in the first epoch: the run ends after that epoch, with its checkpoint
+    real_step, calls = loop_mod.train_step, []
+
+    def step_then_sigterm(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, signal.SIG_IGN, None):
+                raise AssertionError("fit installed no SIGTERM handler")
+            signal.raise_signal(signal.SIGTERM)
+        return real_step(*args, **kwargs)
+
+    files = _fit_files(workdir, "sigterm")
+    loop_mod.train_step = step_then_sigterm
+    try:
+        stopped = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=5, light_best_nets=True), verbose=False,
+                      device=DEVICE, **files)
+    finally:
+        loop_mod.train_step = real_step
+    _sync()
+    full, light = os.path.getsize(files["checkpoint_filename"]), os.path.getsize(files["best_valid_filename"])
+    print("  SIGTERM at step 2: stopped after epoch {} with a checkpoint of epoch {}; light best net {} B, "
+          "{:.3f} of the full checkpoint's {} B".format(
+              stopped["epoch"], load_checkpoint(files["checkpoint_filename"])["epoch"], light, light / full, full))
+    if stopped["epoch"] != 1 or load_checkpoint(files["checkpoint_filename"])["epoch"] != 1:
+        raise AssertionError("the SIGTERM run did not stop after its epoch with a checkpoint")
+    if light >= 0.75 * full:
+        raise AssertionError("the light best net is not light")
+    aug_steps = steps + len(stopped["train_losses"])
+    launches = warp.warp_launches
+    print("  warp kernel launches in the augmented runs: {} in {} steps".format(launches, aug_steps))
+    if launches != aug_steps:
+        raise AssertionError("warp launches {} != 1 x {} augmented steps".format(launches, aug_steps))
+
+    # the streaming feed against the resident one, augmentation off
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = {}
+        for stream in (False, True):
+            out = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1, data_aug=False), verbose=False,
+                      stream_data=stream, device=DEVICE, **_fit_files(workdir, "stream{}".format(stream)))
+            losses[stream] = np.array(out["train_losses"] + out["valid_losses"])
+            sec = out["step_seconds"][1:]
+            print("  {} {} feed: {} steps, {:.3f} steps/s after the first step".format(
+                _card(card), "streamed" if stream else "resident", len(out["train_losses"]), len(sec) / sum(sec)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = float(np.max(np.abs(losses[True] - losses[False]) / np.abs(losses[False])))
+    print("  streamed against resident, augmentation off, deterministic cuDNN: per-step and validation losses "
+          "within {:.2e} relative (<= 1e-4)".format(rel))
+    if rel > 1e-4:
+        raise AssertionError("the streamed feed's losses differ from the resident feed's")
+    return launches
+
+
+def phase_folds(seed, workdir, card, kernel):
+    """``fit_multifold`` over K = 6 folds at full width for 2 epochs, then
+    resumed to a third; the warp pair at the fold step's K*B frames
+    against its plain version; the six best nets loaded; one lockstep step
+    on the card against the CPU. Returns the warp launches of the runs."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.ops import image, warp
+    from deepfluoro_tpu_torch.ops.image import calc_pad_amount
+    from deepfluoro_tpu_torch.train import make_optimizer
+    from deepfluoro_tpu_torch.train.multifold import fit_multifold, multifold_step
+
+    data = _smoke_data(seed)
+    k_folds = len(FOLD_PATS)
+    prefixes = dict(checkpoint_prefix=os.path.join(workdir, "fold_ck"), best_prefix=os.path.join(workdir, "fold_best"),
+                    valid_loss_txt_prefix=os.path.join(workdir, "fold_valid"))
+    cfg = _recipe_cfg(data, seed, max_num_epochs=2, light_best_nets=True)
+    _sync()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    warp.warp_launches = 0
+    t0 = time.perf_counter()
+    out = fit_multifold(data, FOLD_PATS, cfg, verbose=False, device=DEVICE, **prefixes)
+    more = fit_multifold(data, FOLD_PATS, _recipe_cfg(data, seed, max_num_epochs=3), verbose=False, device=DEVICE,
+                         **prefixes)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = warp.warp_launches
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    steps = len(out["train_losses"]) + len(more["train_losses"])
+    losses = np.concatenate([np.array(out["train_losses"] + more["train_losses"]).ravel(),
+                             np.array(out["valid_losses"] + more["valid_losses"]).ravel()])
+    print("  {} folds in lockstep: epochs {} then {} (resumed), {} lockstep steps of K*B = {} frames in {:.1f} s; "
+          "best valid {}".format(k_folds, out["epoch"], more["epoch"], steps, k_folds * cfg.batch_size, wall,
+                                 ["%.4f" % v for v in more["best_valid_losses"]]))
+    if (out["epoch"], more["epoch"]) != (2, 3) or not np.isfinite(losses).all():
+        raise AssertionError("fold training did not run 2 + 1 epochs with finite losses")
+    if any(not np.array_equal(a, b) for a, b in zip(out["train_idx"], more["train_idx"])):
+        raise AssertionError("the resumed folds did not reuse their splits")
+    print("  warp kernel launches during fold training: {} in {} lockstep steps (1 per step)".format(launches, steps))
+    if launches != steps:
+        raise AssertionError("warp launches {} != 1 x {} lockstep steps".format(launches, steps))
+    sec = out["step_seconds"][1:] + more["step_seconds"][1:]
+    rate = len(sec) / sum(sec)
+    print("  {} lockstep steps/s after each session's first step: {:.3f}; fold-steps/s {:.3f} (K = {}, batch {})".format(
+        _card(card), rate, rate * k_folds, k_folds, cfg.batch_size))
+    print("  {} fold phase's peak device memory less its baseline: {} bytes (max_memory_allocated {} bytes, "
+          "baseline {} bytes)".format(_card(card), peak - baseline, peak, baseline))
+
+    # the six best nets, each a standard checkpoint
+    for p in FOLD_PATS:
+        model, loaded = load_net_from_checkpoint("{}_spec{:02d}.pt".format(prefixes["best_prefix"], p), device=DEVICE,
+                                                 verbose=False)
+        if next(model.parameters()).device.type != DEVICE or loaded.depth != TRAIN_DEPTH:
+            raise AssertionError("fold net {} did not load".format(p))
+    print("  {} best nets loaded through load_net_from_checkpoint".format(k_folds))
+
+    # the kernel against its plain version at the fold step's batch
+    b = k_folds * cfg.batch_size
+    extra = calc_pad_amount(TRAIN_PAD, TRAIN_FRAME)
+    out_dim = TRAIN_FRAME + 2 * extra
+    oshape, off = (out_dim, out_dim), (-extra, -extra)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 7)
+    proj = torch.rand((b, TRAIN_FRAME, TRAIN_FRAME), generator=gen, device=DEVICE)
+    labels = torch.randint(0, 7, (b, TRAIN_FRAME, TRAIN_FRAME), generator=gen, device=DEVICE).float()
+    aug_m = _aug_matrices(gen, b, TRAIN_FRAME).to(DEVICE)
+    label = "8x {}->{} (batch {}, the fold step)".format(TRAIN_FRAME, out_dim, b)
+
+    def kernel_pair():
+        return warp.affine_warp_pair(proj, labels, aug_m, oshape, off)
+
+    def plain_pair():
+        return image.affine_warp(proj, aug_m, 1, oshape, off), image.affine_warp(labels, aug_m, 0)
+
+    def library_pair():
+        return warp.grid_sample_warp(proj, aug_m, 1, oshape, off), warp.grid_sample_warp(labels, aug_m, 0)
+
+    got, want = kernel_pair(), plain_pair()
+    _sync()
+    err = _compare(label + " projection bilinear", got[0], want[0], 1)
+    _compare(label + " labels nearest", got[1], want[1], 0)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    if DEVICE == "cuda":
+        bound_ms, bound_by, nbytes, nops = _warp_bound(b, TRAIN_FRAME, out_dim)
+        row = {"geometry": label, "device_ms": _graph_ms(kernel_pair), "host_ms": _host_ms(kernel_pair),
+               "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": _graph_ms(plain_pair),
+               "library_ms": _graph_ms(library_pair)}
+        print("  {} {}: kernel device {:.5f} ms (graph of {}), host dispatch {:.5f} ms per call, bound {:.5f} ms by {} "
+              "({} bytes, {} operations), plain {:.5f} ms, grid_sample_warp {:.5f} ms".format(
+                  _card(card), label, row["device_ms"], GRAPH_SETS, row["host_ms"], bound_ms, bound_by, nbytes, nops,
+                  row["plain_ms"], row["library_ms"]))
+        kernel["geometries"].append(row)
+
+    # one lockstep step on the card against the same step on the CPU
+    idx = np.stack([t[: cfg.batch_size] for t in more["train_idx"]]).reshape(-1)
+    batch = tuple(torch.from_numpy(a[idx]) for a in (data.projs, data.segs, data.lands))
+    aug_off = AugmentConfig(num_classes=cfg.num_classes, proj_pad_dim=TRAIN_PAD, prob_of_aug=0.0)
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        models = [copy.deepcopy(m).to(dev) for m in more["models"]]
+        opts = [make_optimizer(cfg, m.parameters()) for m in models]
+        lrs = [o.param_groups[0]["lr"] for o in more["optimizers"]]
+        results[dev] = multifold_step(models, opts, cfg, aug_off, None, tuple(t.to(dev) for t in batch), lrs).cpu().numpy()
+    rel = float(np.max(np.abs(results[DEVICE] - results["cpu"]) / np.abs(results["cpu"])))
+    print("  one lockstep step, card against CPU, augmentation off: fold losses {} within {:.2e} relative "
+          "(<= 1e-3)".format(["%.5f" % v for v in results["cpu"]], rel))
+    if rel > 1e-3:
+        raise AssertionError("the lockstep step differs between card and CPU")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic data, weights and draws")
@@ -671,7 +939,9 @@ def main(argv=None) -> int:
             ("3 kernel vs plain", lambda: phase_kernel_check(args.seed)),
             ("4 training", lambda: phase_training(args.seed, workdir, results["1 environment"])),
             ("5 inference", lambda: phase_inference(args.seed, workdir, results["4 training"][1], results["1 environment"])),
-            ("6 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("6 resume and stream", lambda: phase_resume_and_stream(args.seed, workdir, results["1 environment"])),
+            ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
+            ("8 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -683,7 +953,13 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     kernel = dict(results["3 kernel vs plain"][1])
-    kernel["launches"] = results["4 training"][0]
+    # each path's launches, counted from 0 around its runs; the total is their sum
+    kernel["launches_per_path"] = {
+        "training": results["4 training"][0],
+        "resume_and_stream": results["6 resume and stream"],
+        "folds": results["7 folds"],
+    }
+    kernel["launches"] = sum(kernel["launches_per_path"].values())
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -11,7 +11,10 @@ the flags of the IPCAI paper recipe (reference train_test_code/Readme.md:
     --best-net yy_best_net.pt --lr-sched plateau --train-valid-split 0.85 \\
     --heat-coeff 0.5
 
-Runs on CUDA; without a card it refuses unless given ``--no-gpu``.
+An existing ``--checkpoint-net`` file resumes the run. Runs on CUDA;
+without a card it refuses unless given ``--no-gpu``. Not ported: ``--bf16``,
+``--remat``, the mesh and process flags, ``--profile-dir`` and
+``--debug-nans``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--best-net", help="file for the network with the lowest validation loss", type=str, default="zz_best_valid.pt")
     p.add_argument("--checkpoint-freq", help="save the checkpoint every this many epochs", type=int, default=1)
     p.add_argument("--no-save-best-valid", help="disable writing the best-validation network", action="store_true")
+    p.add_argument("--light-best-nets", help="best-valid / pre-restart files store only arch meta + weights + BN stats (inference artifacts), not optimizer/scheduler state; the periodic checkpoint keeps full state for resume", action="store_true")
     p.add_argument("--optim", help="optimizer: sgd | adam | rmsprop", type=str, default="sgd")
     p.add_argument("--lr-sched", help="LR schedule: cos | plateau | none", type=str, default="cos")
     p.add_argument("--init-lr", help="starting learning rate", type=float, default=1.0e-2)
@@ -45,11 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wgt-decay", help="L2 weight-decay coefficient", type=float, default=0)
     p.add_argument("--cos-anneal-epochs", help="cosine schedule: epochs per annealing period", type=int, default=10)
     p.add_argument("--cos-growth", help="cosine schedule: period multiplier at each restart", type=int, default=2)
+    p.add_argument("--save-restart-net", help="save a snapshot right before each warm restart as <PREFIX>_XX.pt", type=str)
+    p.add_argument("--save-after-n-restarts", help="only start writing pre-restart snapshots after this many restarts", type=int, default=0)
     p.add_argument("--max-num-restarts", help="stop after this many warm restarts (<= 0 disables)", type=int, default=-1)
     p.add_argument("--max-num-epochs", help="epoch budget", type=int, default=200)
     p.add_argument("--train-loss-txt", help="per-iteration training-loss log file", type=str, default="train_iter_loss.txt")
     p.add_argument("--valid-loss-txt", help="per-epoch validation-loss log file", type=str, default="valid_loss.txt")
     p.add_argument("--no-gpu", help="run on the CPU", action="store_true")
+    p.add_argument("--max-hours", help="wall-clock budget in hours; exits early if the next epoch would overrun", type=float, default=-1.0)
     p.add_argument("--unet-num-lvls", help="U-Net encoder depth (levels)", type=int, default=5)
     p.add_argument("--unet-init-feats-exp", help="log2 of the first level's feature count", type=int, default=4)
     p.add_argument("--unet-batch-norm", help="BatchNorm after each conv+ReLU", action="store_true")
@@ -62,6 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heat-coeff", help="heatmap-loss weight; the dice term gets one minus this", type=float, default=0.5)
     p.add_argument("--dice-valid", help="validate with the dice term only", action="store_true")
     p.add_argument("--train-valid-split", help="fraction of the pool used for training; active in [0,1], overrides --valid-pats", type=float, default=-1.0)
+    p.add_argument("--stream-data", help="keep the dataset in host memory and prefetch batches to the device (for archives too large for device memory); default keeps the dataset on the device", action="store_true")
+    p.add_argument("--dup-lr-flip", help="duplicate every training sample with a left/right mirror (flipped projections, bilateral seg labels and landmark pairs swapped); mirrors join after the train/valid split", action="store_true")
     p.add_argument("--seed", help="random seed", type=int, default=0)
     return p
 
@@ -95,7 +104,10 @@ def main(argv=None):
         lrs_num_epochs=args.cos_anneal_epochs,
         lrs_growth_factor=args.cos_growth,
         max_num_restarts=args.max_num_restarts,
+        save_restart_net_prefix=args.save_restart_net,
+        save_after_n_restarts=args.save_after_n_restarts,
         max_num_epochs=args.max_num_epochs,
+        max_hours=args.max_hours,
         depth=args.unet_num_lvls,
         init_feats_exp=args.unet_init_feats_exp,
         batch_norm=args.unet_batch_norm,
@@ -110,7 +122,9 @@ def main(argv=None):
         train_valid_split=args.train_valid_split,
         checkpoint_freq=args.checkpoint_freq,
         save_best_valid=not args.no_save_best_valid,
+        light_best_nets=args.light_best_nets,
         seed=args.seed,
+        dup_lr_flip=args.dup_lr_flip,
     )
     fit(
         args.input_data_file_path,
@@ -121,6 +135,7 @@ def main(argv=None):
         best_valid_filename=args.best_net,
         train_loss_txt=args.train_loss_txt,
         valid_loss_txt=args.valid_loss_txt,
+        stream_data=args.stream_data,
         device="cpu" if args.no_gpu else "cuda",
     )
 

@@ -96,3 +96,16 @@ def state_dict_from_jax(params, batch_stats, model: UNet) -> "OrderedDict[str, t
     keys = list(model.state_dict())
     assert set(keys) == set(sd), sorted(set(keys) ^ set(sd))
     return OrderedDict((k, sd[k]) for k in keys)
+
+
+def _fold_slice(tree, k: int):
+    if hasattr(tree, "items"):
+        return {name: _fold_slice(sub, k) for name, sub in tree.items()}
+    return np.asarray(tree)[k]
+
+
+def fold_state_dict_from_jax(params, batch_stats, k: int, model: UNet) -> "OrderedDict[str, torch.Tensor]":
+    """Fold k of a JAX multifold state, whose every leaf carries a leading
+    fold axis (``make_multifold_state``; what ``fold_state(stacked, k)``
+    takes out), as a state_dict for ``model``."""
+    return state_dict_from_jax(_fold_slice(params, k), _fold_slice(batch_stats, k), model)

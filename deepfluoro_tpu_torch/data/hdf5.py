@@ -37,6 +37,7 @@ class FluoroData:
     lands: np.ndarray | None
     orig_img_shape: tuple[int, int]
     pat_inds: np.ndarray | None = None
+    minmax: tuple[float, float] | None = None  # the global scaling load_dataset applied
 
     def __len__(self) -> int:
         return self.projs.shape[0]
@@ -53,6 +54,7 @@ class FluoroData:
             lands=None if self.lands is None else self.lands[idx],
             orig_img_shape=self.orig_img_shape,
             pat_inds=None if self.pat_inds is None else self.pat_inds[idx],
+            minmax=self.minmax,
         )
 
     def select_pats(self, pats: Sequence[int]) -> "FluoroData":
@@ -74,6 +76,15 @@ def get_orig_img_shape(h5_file_path: str, pat_ind: int) -> tuple[int, int]:
         s = f["{:02d}/projs".format(pat_ind)].shape
     assert len(s) == 3
     return (s[1], s[2])
+
+
+def specimen_counts(h5_file_path: str, pat_inds: Sequence[int]) -> list[int]:
+    """Projection counts per specimen (metadata only): the row ranges of a
+    :func:`load_dataset` union."""
+    import h5py
+
+    with h5py.File(h5_file_path, "r") as f:
+        return [int(f["{:02d}/projs".format(p)].shape[0]) for p in pat_inds]
 
 
 def get_num_lands_from_dataset(h5_file_path: str) -> int:
@@ -117,12 +128,102 @@ def mark_oob_landmarks_inf(lands: np.ndarray, img_shape_hw: tuple[int, int]) -> 
     return lands
 
 
-def load_dataset(h5_file_path: str, pat_inds: Sequence[int], no_seg: bool = False) -> FluoroData:
+def _lr_land_permutation(num_lands: int, land_names: Sequence[str] | None) -> np.ndarray:
+    """Landmark index permutation under a left/right mirror. With names,
+    '<base>-l' pairs with '<base>-r' and unpaired names map to themselves
+    (names without any pair are refused); without names, adjacent pairs
+    swap (0<->1, 2<->3, ...), the layout reference dataset.py:495-499
+    intended."""
+    perm = np.arange(num_lands)
+    if land_names:
+        assert len(land_names) == num_lands
+        index = {n: i for i, n in enumerate(land_names)}
+        paired = 0
+        for i, n in enumerate(land_names):
+            j = None
+            if n.endswith("-l"):
+                j = index.get(n[:-2] + "-r")
+            elif n.endswith("-r"):
+                j = index.get(n[:-2] + "-l")
+            if j is not None:
+                perm[i] = j
+                paired += 1
+        if num_lands > 0 and paired == 0:
+            raise ValueError(
+                "land-names {} contain no '-l'/'-r' pairs; cannot derive the left/right landmark swap "
+                "for flip duplication".format(list(land_names))
+            )
+    else:
+        assert num_lands % 2 == 0, "unpaired landmark count needs land-names"
+        perm = perm.reshape(-1, 2)[:, ::-1].reshape(-1)
+    return perm
+
+
+def _mirror_rows(projs, segs, lands, cols: int, land_names, class_swap):
+    """Left/right mirror of a row batch: columns flip, the bilateral label
+    pairs swap, in-view landmark x goes to (cols-1)-x and the l/r landmark
+    channels swap."""
+    m_projs = projs[:, :, ::-1]
+    m_segs = None
+    if segs is not None:
+        lut = np.arange(256, dtype=segs.dtype)
+        for a, b in class_swap:
+            lut[a], lut[b] = b, a
+        m_segs = lut[segs[:, :, ::-1]]
+    m_lands = None
+    if lands is not None:
+        m_lands = lands.copy()
+        finite = np.isfinite(m_lands[:, 0, :])
+        m_lands[:, 0, :][finite] = (cols - 1) - m_lands[:, 0, :][finite]
+        m_lands = m_lands[:, :, _lr_land_permutation(m_lands.shape[-1], land_names)]
+    return m_projs, m_segs, m_lands
+
+
+def lr_flip_duplicate(
+    data: FluoroData,
+    land_names: Sequence[str] | None = None,
+    class_swap: Sequence[tuple[int, int]] = ((1, 2), (5, 6)),
+) -> FluoroData:
+    """Append a left/right-mirrored copy of every sample: the corrected
+    reference dup_data_w_left_right_flip (dataset.py:464-502). The default
+    ``class_swap`` is the 7-class map (1 left <-> 2 right hemipelvis, 5 left
+    <-> 6 right femur); landmark pairs swap by '-l'/'-r' name, or as
+    adjacent pairs without names."""
+    m_projs, m_segs, m_lands = _mirror_rows(
+        data.projs, data.segs, data.lands, data.orig_img_shape[1], land_names, class_swap
+    )
+    cat = lambda a, m: None if a is None else np.concatenate([a, m])  # noqa: E731
+    return FluoroData(
+        projs=np.concatenate([data.projs, m_projs]),
+        segs=cat(data.segs, m_segs),
+        lands=cat(data.lands, m_lands),
+        orig_img_shape=data.orig_img_shape,
+        pat_inds=cat(data.pat_inds, data.pat_inds),
+        minmax=data.minmax,
+    )
+
+
+def load_dataset(
+    h5_file_path: str,
+    pat_inds: Sequence[int],
+    minmax: bool | tuple[float, float] | None = None,
+    no_seg: bool = False,
+    dup_lr_flip: bool = False,
+) -> FluoroData:
     """All projections, segmentations and landmarks of the given specimens
-    (reference dataset.py:368-512 minus the host-side one-hot and the
-    min-max scaling, which training does not use). ``no_seg`` leaves the
-    segmentations unread, as inference reads a test archive."""
+    (reference dataset.py:368-512 minus the host-side one-hot). ``minmax``
+    scales the projections to [0, 1] by their global range (True) or by a
+    given (min, max) (dataset.py:381-395, 509-512); ``no_seg`` leaves the
+    segmentations unread, as inference reads a test archive;
+    ``dup_lr_flip`` appends a mirror of every row (the training loops
+    instead mirror the training side after their split)."""
     import h5py
+
+    find_minmax = isinstance(minmax, bool) and minmax
+    if isinstance(minmax, tuple):
+        mm_min, mm_max = minmax
+    else:
+        mm_min, mm_max = math.inf, -math.inf
 
     all_projs, all_segs, all_lands, all_pats = [], [], [], []
     orig_img_shape = None
@@ -140,6 +241,9 @@ def load_dataset(h5_file_path: str, pat_inds: Sequence[int], no_seg: bool = Fals
                 assert cur_lands.shape[0] == cur_projs.shape[0]
                 assert np.all(np.isfinite(cur_lands)), "inputs must be finite (dataset.py:419)"
                 all_lands.append(mark_oob_landmarks_inf(cur_lands, orig_img_shape))
+            if find_minmax:
+                mm_min = min(mm_min, float(cur_projs.min()))
+                mm_max = max(mm_max, float(cur_projs.max()))
             all_projs.append(cur_projs)
             all_pats.append(np.full(cur_projs.shape[0], pat_idx, np.int64))
             if not no_seg and "segs" in pat_g:
@@ -158,19 +262,34 @@ def load_dataset(h5_file_path: str, pat_inds: Sequence[int], no_seg: bool = Fals
                     list(pat_inds), name, arr.shape[0], projs.shape[0]
                 )
             )
-    return FluoroData(
-        projs=projs, segs=segs, lands=lands, orig_img_shape=orig_img_shape, pat_inds=np.concatenate(all_pats)
+    mm = None
+    if minmax is not None and minmax is not False:
+        assert (mm_max - mm_min) > 1.0e-6
+        projs = (projs - mm_min) / (mm_max - mm_min)
+        mm = (mm_min, mm_max)
+    data = FluoroData(
+        projs=projs, segs=segs, lands=lands, orig_img_shape=orig_img_shape, pat_inds=np.concatenate(all_pats),
+        minmax=mm,
     )
+    if dup_lr_flip:
+        data = lr_flip_duplicate(data, land_names=archive_land_names(h5_file_path) if lands is not None else None)
+    return data
 
 
-def split_train_valid(data: FluoroData, train_valid_split: float, seed: int | None = None):
-    """Random train/valid split (reference dataset.py:524-551): the first
-    ceil(split*n) positions of a Random(seed) shuffle train, as in the JAX
-    package. Returns (train_data, valid_data, train_inds, valid_inds) with
-    the indices as python lists, as checkpoints store them
-    (train.py:512-513)."""
+def archive_land_names(h5_file_path: str) -> list[str] | None:
+    """The archive's landmark names, or None when it has no readable
+    land-names group (flip duplication then swaps adjacent pairs)."""
+    try:
+        return get_land_names_from_dataset(h5_file_path)
+    except (KeyError, OSError):
+        return None
+
+
+def split_indices(n: int, train_valid_split: float, seed: int | None = None):
+    """The split core of every trainer: the first ceil(split*n) positions
+    of a Random(seed) shuffle train, the rest validate (reference
+    dataset.py:524-551). Returns two python lists."""
     assert 0.0 < train_valid_split < 1.0
-    n = len(data)
     num_train = int(math.ceil(train_valid_split * n))
     if n - num_train == 0:
         raise ValueError(
@@ -178,5 +297,19 @@ def split_train_valid(data: FluoroData, train_valid_split: float, seed: int | No
         )
     inds = list(range(n))
     _pyrandom.Random(seed).shuffle(inds)
-    train_inds, valid_inds = inds[:num_train], inds[num_train:]
+    return inds[:num_train], inds[num_train:]
+
+
+def split_train_valid(data: FluoroData, train_valid_split: float, train_valid_idx=None, seed: int | None = None):
+    """Random, or restored, train/valid split (reference dataset.py:524-551).
+    ``train_valid_idx`` = (train indices, valid indices) reuses a stored
+    split, as a resume does. Returns (train_data, valid_data, train_inds,
+    valid_inds) with the indices as python lists, as checkpoints store them
+    (train.py:512-513)."""
+    if train_valid_idx is None or train_valid_idx[0] is None or train_valid_idx[1] is None:
+        train_inds, valid_inds = split_indices(len(data), train_valid_split, seed)
+    else:
+        train_inds, valid_inds = list(train_valid_idx[0]), list(train_valid_idx[1])
+        assert len(train_inds) == int(math.ceil(train_valid_split * len(data)))
+        assert len(train_inds) + len(valid_inds) == len(data)
     return data.subset(train_inds), data.subset(valid_inds), train_inds, valid_inds

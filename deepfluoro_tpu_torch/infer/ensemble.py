@@ -59,7 +59,7 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     dev = get_device(device)
     ck = torch.load(path, map_location="cpu", weights_only=False)
     meta = {k: v for k, v in ck.items() if not k.endswith("state-dict") and k != "loss"}
-    cfg = TrainConfig.from_checkpoint_meta(meta)
+    cfg = TrainConfig.from_checkpoint_meta(meta, training=False)
     sd = ck["model-state-dict"]
     if verbose:
         print("  loading unet params from torch (reference) checkpoint...")

@@ -3,8 +3,9 @@ from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartL
 from deepfluoro_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, train_step
 from deepfluoro_tpu_torch.train.loop import fit
+from deepfluoro_tpu_torch.train.multifold import fit_multifold
 
 __all__ = [
     "TrainConfig", "build_model", "ReduceLROnPlateau", "WarmRestartLR", "load_checkpoint",
-    "save_checkpoint", "eval_losses", "make_optimizer", "train_step", "fit",
+    "save_checkpoint", "eval_losses", "make_optimizer", "train_step", "fit", "fit_multifold",
 ]

@@ -28,7 +28,10 @@ class TrainConfig:
     lrs_num_epochs: int = 10  # --cos-anneal-epochs
     lrs_growth_factor: int = 2  # --cos-growth
     max_num_restarts: int = -1
+    save_after_n_restarts: int = 0
+    save_restart_net_prefix: str | None = None  # pre-warm-restart snapshots <prefix>_RR.pt
     max_num_epochs: int = 200
+    max_hours: float = -1.0  # wall-clock budget; <= 0 disables
     depth: int = 5  # --unet-num-lvls
     init_feats_exp: int = 4  # --unet-init-feats-exp (wf)
     batch_norm: bool = False
@@ -43,7 +46,13 @@ class TrainConfig:
     train_valid_split: float = -1.0
     checkpoint_freq: int = 1
     save_best_valid: bool = True
+    # best-valid and pre-restart files hold meta, weights and BatchNorm
+    # statistics only (no optimizer or scheduler state)
+    light_best_nets: bool = False
     seed: int = 0
+    # append a left/right mirror of every training sample, after the split
+    # (data/hdf5.py::lr_flip_duplicate)
+    dup_lr_flip: bool = False
 
     _META_KEYS = {
         "num-classes": "num_classes",
@@ -68,22 +77,23 @@ class TrainConfig:
         "lrs-num-epochs": "lrs_num_epochs",
         "lrs-growth-factor": "lrs_growth_factor",
         "lrs-max-num-restarts": "max_num_restarts",
+        "lrs-save-restart-net-prefix": "save_restart_net_prefix",
+        "lrs-save-after-n-restarts": "save_after_n_restarts",
         "lrs-patience": "lr_patience",
         "lrs-cooldown": "lr_cooldown",
         "checkpoint-freq": "checkpoint_freq",
         "save-best-valid": "save_best_valid",
+        "light-best-nets": "light_best_nets",
         "init-lr": "init_lr",
+        "dup-lr-flip": "dup_lr_flip",
     }
 
     # keys of the JAX package's metadata for options not ported yet: the
-    # port writes the value that means "off", so readers see the full key set
+    # port writes the value that means "off", so readers see the full key
+    # set, and refuses a checkpoint that asks for anything else
     _FIXED_META = {
-        "lrs-save-restart-net-prefix": None,
-        "lrs-save-after-n-restarts": 0,
-        "light-best-nets": False,
         "compute-dtype": "float32",
         "remat": False,
-        "dup-lr-flip": False,
     }
 
     def to_checkpoint_meta(self) -> dict:
@@ -92,8 +102,19 @@ class TrainConfig:
         return meta
 
     @classmethod
-    def from_checkpoint_meta(cls, meta: dict, base: "TrainConfig | None" = None) -> "TrainConfig":
-        """Stored keys override; absent ones keep ``base``'s values."""
+    def from_checkpoint_meta(cls, meta: dict, base: "TrainConfig | None" = None, training: bool = True) -> "TrainConfig":
+        """Stored keys override; absent ones keep ``base``'s values. With
+        ``training``, raises ValueError when the checkpoint asks for an
+        option the port does not train with (bfloat16 compute,
+        rematerialization): going on in float32 without saying so would be
+        another run. Inference reads such a net's float32 weights as they
+        are (``training=False``)."""
+        for k, off in cls._FIXED_META.items():
+            if training and k in meta and meta[k] != off:
+                raise ValueError(
+                    "checkpoint asks for {}={!r}, which deepfluoro_tpu_torch does not support "
+                    "(only {!r})".format(k, meta[k], off)
+                )
         cfg = dataclasses.replace(base) if base is not None else cls()
         for k, attr in cls._META_KEYS.items():
             if k in meta:

@@ -1,44 +1,145 @@
 """The training loop on one device (JAX counterpart: ``deepfluoro_tpu/
 train/loop.py::fit``, itself after reference train.py:104-578).
 
-Epochs of shuffled batches from a dataset held on the device, the plateau
-and cosine schedules, a validation loss per epoch, the best-validation
-save, the periodic checkpoint and a checkpoint on exit. Saves are
-synchronous; the loop starts no thread or process and installs no signal
-handler.
+Epochs of shuffled batches, from a dataset held on the device or streamed
+from host memory (``stream_data``); the plateau and cosine schedules; a
+validation loss per epoch. Checkpoint kinds (train.py:517-542): the
+periodic checkpoint every ``checkpoint_freq`` epochs, the best-validation
+net (a copy when the checkpoint was written this epoch; a light save with
+``light_best_nets``) and the pre-warm-restart snapshots
+``<prefix>_RR.pt``. It stops at the epoch or restart budget, when the next
+epoch would overrun ``max_hours``, or after the epoch in which SIGTERM
+arrived, and always checkpoints on exit. An existing checkpoint resumes:
+its metadata overrides the caller's config, and its split, weights,
+BatchNorm statistics, optimizer and scheduler state, epoch, best
+validation loss and restart count carry on. Saves run on a worker thread
+(``AsyncCheckpointer``).
 
-Not ported yet: resume from an existing checkpoint (refused),
-``max_hours``, pre-restart snapshots, left/right flip duplication,
-bfloat16 compute, rematerialization and light best nets (no option here
-yet); the JAX package's streaming feed, async checkpointer, SIGTERM
-handling and meshes.
+Not ported yet: bfloat16 compute and rematerialization (refused on
+resume), meshes and the multi-host feed.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import signal
 import time
 
 import numpy as np
 import torch
 
 from deepfluoro_tpu_torch.data.augment import AugmentConfig
-from deepfluoro_tpu_torch.data.hdf5 import FluoroData, load_dataset, split_train_valid
-from deepfluoro_tpu_torch.data.pipeline import BatchIterator
-from deepfluoro_tpu_torch.train.checkpoint import copy_checkpoint, save_checkpoint
+from deepfluoro_tpu_torch.data.hdf5 import (
+    FluoroData,
+    archive_land_names,
+    load_dataset,
+    lr_flip_duplicate,
+    split_train_valid,
+)
+from deepfluoro_tpu_torch.data.pipeline import BatchIterator, PrefetchIterator
+from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartLR
-from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, train_step
+from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, set_lr, train_step
 from deepfluoro_tpu_torch.utils.io import RunningFloatWriter
 from deepfluoro_tpu_torch.utils.platform import get_device
 
 
-def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator: BatchIterator):
+def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator):
     """Per-image losses over a dataset -> (mean, std with N-1), as the
     reference's batch-1 no-grad loop (util.py:116-165)."""
     losses = torch.cat([eval_losses(model, cfg, aug_cfg, batch) for batch in iterator.epoch()]).cpu().numpy()
     std = float(losses.std(ddof=1)) if losses.size > 1 else 0.0
     return float(losses.mean()), std
+
+
+def checkpoint_config(ck: dict, base: TrainConfig) -> TrainConfig:
+    """The config a checkpoint resumes with: its metadata over ``base``. A
+    reference train.py file stores no init-lr; its param groups' LR stands
+    in (the reference's own resume restores it, train.py:355)."""
+    meta = {k: v for k, v in ck.items() if not k.endswith("state-dict") and k != "loss"}
+    groups = (ck.get("optimizer-state-dict") or {}).get("param_groups", [])
+    if "init-lr" not in meta and groups:
+        meta["init-lr"] = float(groups[0]["lr"])
+    return TrainConfig.from_checkpoint_meta(meta, base=base)
+
+
+def make_scheduler(cfg: TrainConfig):
+    """The LR state machine train.py:331-352 builds, or None (constant LR)."""
+    if cfg.optim_type != "sgd":
+        assert cfg.lr_sched_meth == "none", "adam/rmsprop only support lr-sched none (train.py:343-352)"
+        return None
+    if cfg.lr_sched_meth == "cos":
+        return WarmRestartLR(cfg.init_lr, init_run_period_epochs=cfg.lrs_num_epochs, growth_factor=cfg.lrs_growth_factor)
+    if cfg.lr_sched_meth == "plateau":
+        return ReduceLROnPlateau(cfg.init_lr, factor=0.1, patience=cfg.lr_patience, cooldown=cfg.lr_cooldown)
+    return None
+
+
+def restore_training_state(ck: dict, model, optimizer, lr_sched, log=print) -> float | None:
+    """Load a checkpoint's weights, BatchNorm statistics, optimizer and
+    scheduler state into a fresh model (already on its device), optimizer
+    and scheduler. A light file (no optimizer state) warm-starts the
+    weights with the fresh optimizer. A reference scheduler state (torch's
+    plateau state, the reference WarmRestartLR's attributes) maps onto the
+    port's fields. Returns the best validation loss, None if none yet."""
+    model.load_state_dict(ck["model-state-dict"])
+    if ck.get("optimizer-state-dict"):
+        optimizer.load_state_dict(ck["optimizer-state-dict"])
+    else:
+        log("  checkpoint stores no optimizer state; starting optimizer fresh")
+    sched = dict(ck.get("scheduler-state-dict") or {})
+    if lr_sched is not None and sched:
+        if sched.get("base_lrs"):
+            sched["base_lr"] = float(sched["base_lrs"][0])
+        if sched.get("min_lrs"):
+            sched["min_lr"] = float(sched["min_lrs"][0])
+        groups = (ck.get("optimizer-state-dict") or {}).get("param_groups", [])
+        if isinstance(lr_sched, ReduceLROnPlateau) and "lr" not in sched and groups:
+            sched["lr"] = float(groups[0]["lr"])
+        keys = lr_sched.state_dict().keys()
+        lr_sched.load_state_dict({k: v for k, v in sched.items() if k in keys})
+    bvl = float(ck.get("best-valid-loss", math.inf))
+    return bvl if math.isfinite(bvl) else None
+
+
+def flip_duplicate(source, d: FluoroData, log=print) -> FluoroData:
+    """``lr_flip_duplicate`` of ``d`` with the landmark names of ``source``
+    (an archive path); data in memory, or an archive without names, swap
+    adjacent landmark pairs, which the log says."""
+    names = None
+    if d.lands is not None:
+        names = None if isinstance(source, FluoroData) else archive_land_names(source)
+        if names is None:
+            log("WARNING: no landmark names; flip duplication swaps ADJACENT landmark pairs")
+    return lr_flip_duplicate(d, land_names=names)
+
+
+class SigtermFlag:
+    """Installs a SIGTERM handler that only sets ``requested`` (printing
+    from a signal handler can re-enter stdout's lock); the training loops
+    stop after the current epoch and checkpoint. ``restore`` puts the
+    previous handler back. Off the main thread nothing is installed."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = None
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._on_sigterm)
+        except ValueError:
+            pass
+
+    def _on_sigterm(self, signum, frame):
+        self.requested = True
+
+    def restore(self) -> None:
+        if self._prev is not None:
+            signal.signal(signal.SIGTERM, self._prev)
+
+
+def index_list(v) -> list[int]:
+    return [] if v is None else [int(i) for i in np.asarray(v).reshape(-1)]
 
 
 def fit(
@@ -51,22 +152,31 @@ def fit(
     train_loss_txt: str = "train_iter_loss.txt",
     valid_loss_txt: str = "valid_loss.txt",
     verbose: bool = True,
+    stream_data: bool = False,
     device: str | torch.device | None = None,
 ) -> dict:
     """Train a network on ``device`` (default CUDA; raises without a card
-    unless ``device="cpu"``).
+    unless ``device="cpu"``), resuming from ``checkpoint_filename`` when it
+    exists.
 
     ``data`` is an archive path, or a ``FluoroData`` in memory whose
     ``pat_inds`` name each row's specimen. ``train_pats`` (and
     ``valid_pats`` when ``cfg.train_valid_split < 0``) select specimens.
-    ``cfg.num_lands`` should already match the data.
+    ``cfg.num_lands`` should already match the data. ``stream_data`` keeps
+    the data in host memory and prefetches batches to the device
+    (``PrefetchIterator``), with the resident feed's batch order.
 
-    Returns dict(model, optimizer, cfg, best_valid_loss, epoch, train_idx,
-    valid_idx, train_losses, valid_losses, step_seconds); ``step_seconds``
-    holds each iteration of the batch loop on the host's clock: the batch
-    gather, the train step up to its loss reaching the host, and the loop's
-    bookkeeping. An epoch's entries sum to its batch loop; validation and
-    checkpoints fall outside them.
+    A resumed session shuffles from ``np.random.default_rng(cfg.seed + 1)``
+    again, as the JAX ``fit`` does, and its loss logs are appended to.
+
+    Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
+    num_restarts, train_idx, valid_idx, train_losses, valid_losses,
+    step_seconds) for this session; ``step_seconds`` holds each iteration
+    of the batch loop on the host's clock: the batch gather, the train step
+    up to its loss reaching the host, and the loop's bookkeeping. An
+    epoch's entries sum to its batch loop; validation falls outside them,
+    and the checkpointer's worker thread writes while the next epoch's
+    steps run.
     """
 
     def log(msg):
@@ -74,11 +184,16 @@ def fit(
             print(msg, flush=True)
 
     dev = get_device(device)
-    if os.path.exists(checkpoint_filename):
-        raise NotImplementedError(
-            "checkpoint '{}' exists and resume is not ported to deepfluoro_tpu_torch yet; "
-            "move it away or pick another checkpoint file".format(checkpoint_filename)
-        )
+    prev = None
+    train_idx = valid_idx = None
+    resume = os.path.exists(checkpoint_filename)
+    if resume:
+        log("loading state from checkpoint...")
+        prev = load_checkpoint(checkpoint_filename, weights_only=False)
+        cfg = checkpoint_config(prev, cfg)
+        if cfg.train_valid_split >= 0:
+            train_idx, valid_idx = index_list(prev.get("train-idx")), index_list(prev.get("valid-idx"))
+            assert train_idx and valid_idx, "checkpoint holds no train/valid split"
     assert cfg.lr_sched_meth in ("cos", "plateau", "none")
     lrs_is_cos = cfg.lr_sched_meth == "cos"
     lrs_plateau = cfg.lr_sched_meth == "plateau"
@@ -88,13 +203,22 @@ def fit(
             return data.select_pats(pats)
         return load_dataset(data, pats)
 
+    def maybe_dup(d):
+        # mirrors join the training side only, after any split: a mirror of
+        # a validation frame in training would inflate the validation loss
+        # that picks the best net and drives the plateau schedule
+        return flip_duplicate(data, d, log) if cfg.dup_lr_flip else d
+
     log("initializing training dataset")
     train_data = load(train_pats)
-    train_idx = valid_idx = None
     if cfg.train_valid_split >= 0:
-        train_data, valid_data, train_idx, valid_idx = split_train_valid(train_data, cfg.train_valid_split, seed=cfg.seed)
+        train_data, valid_data, train_idx, valid_idx = split_train_valid(
+            train_data, cfg.train_valid_split, (train_idx, valid_idx), seed=cfg.seed
+        )
+        train_data = maybe_dup(train_data)
     else:
         assert valid_pats is not None
+        train_data = maybe_dup(train_data)
         log("initializing validation dataset")
         valid_data = load(valid_pats)
     log("Length of training dataset: {}".format(len(train_data)))
@@ -118,39 +242,49 @@ def fit(
         model = build_model(cfg)
     model.to(dev)
     optimizer = make_optimizer(cfg, model.parameters())
-
-    lr_sched = None
-    if cfg.optim_type == "sgd":
-        if lrs_is_cos:
-            lr_sched = WarmRestartLR(cfg.init_lr, init_run_period_epochs=cfg.lrs_num_epochs, growth_factor=cfg.lrs_growth_factor)
-        elif lrs_plateau:
-            lr_sched = ReduceLROnPlateau(cfg.init_lr, factor=0.1, patience=cfg.lr_patience, cooldown=cfg.lr_cooldown)
-    else:
-        assert cfg.lr_sched_meth == "none", "adam/rmsprop only support lr-sched none (train.py:343-352)"
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    # the same numpy shuffle stream as the JAX loop's, so batch orders agree
-    train_iter = BatchIterator(train_data, cfg.batch_size, dev, shuffle=True, rng=np.random.default_rng(cfg.seed + 1))
-    valid_iter = BatchIterator(valid_data, cfg.batch_size, dev)
-    train_ds_len = len(train_data)
+    lr_sched = make_scheduler(cfg)
 
     best_valid_loss = None
-    last_loss = None
     epoch = 0
     num_restarts = 0
-    train_losses, valid_losses, step_seconds = [], [], []
+    if prev is not None:
+        best_valid_loss = restore_training_state(prev, model, optimizer, lr_sched, log)
+        epoch = int(prev["epoch"])
+        num_restarts = int(prev.get("lrs-num-restarts", 0))
+        del prev
 
-    def save_net(path):
-        save_checkpoint(
-            path, cfg, model, optimizer,
-            sched_state=lr_sched.state_dict() if lr_sched is not None else None,
+    gen = torch.Generator(device=dev)
+    # a resumed session draws an augmentation stream of its own
+    gen.manual_seed(cfg.seed + 1_000_003 * epoch)
+    # the JAX loop's numpy shuffle stream, so batch orders agree
+    if stream_data:
+        train_iter = PrefetchIterator(train_data, cfg.batch_size, dev, shuffle=True, seed=cfg.seed + 1)
+        valid_iter = PrefetchIterator(valid_data, cfg.batch_size, dev, shuffle=False)
+    else:
+        train_iter = BatchIterator(train_data, cfg.batch_size, dev, shuffle=True, rng=np.random.default_rng(cfg.seed + 1))
+        valid_iter = BatchIterator(valid_data, cfg.batch_size, dev)
+    train_ds_len = len(train_data)
+
+    last_loss = None
+    train_losses, valid_losses, step_seconds = [], [], []
+    tot_time_hours = 0.0
+    epochs_this_session = 0
+    checkpointer = AsyncCheckpointer()
+
+    def save_net(path, light=False):
+        checkpointer.save(
+            path, cfg, model, None if light else optimizer,
+            sched_state=None if light or lr_sched is None else lr_sched.state_dict(),
             epoch=epoch, best_valid_loss=best_valid_loss, last_loss=last_loss,
             num_restarts=num_restarts, train_idx=train_idx, valid_idx=valid_idx,
         )
 
+    sigterm = SigtermFlag()
+    train_loss_out = RunningFloatWriter(train_loss_txt, new_file=not resume)
+    valid_loss_out = RunningFloatWriter(valid_loss_txt, new_file=not resume)
     log("Start Training...")
-    with RunningFloatWriter(train_loss_txt) as train_loss_out, RunningFloatWriter(valid_loss_txt) as valid_loss_out:
+    completed = False
+    try:
         keep_training = True
         while keep_training:
             epoch_start = time.time()
@@ -195,26 +329,54 @@ def fit(
                     if lr_sched.just_restarted:
                         log("  Next epoch is warm restart...")
                         num_restarts += 1
+                # the saved param groups carry the LR the next epoch runs
+                # at, as torch's schedulers leave them (readers of the file
+                # take the plateau LR from there)
+                set_lr(optimizer, lr_sched.get_lr())
             epoch += 1
 
             new_best_valid = best_valid_loss is None or avg_valid_loss < best_valid_loss
             if new_best_valid:
                 best_valid_loss = avg_valid_loss
 
-            saved_path = None
+            saved_path = None  # a full file written this epoch, a copy source
             if epoch % cfg.checkpoint_freq == 0:
                 log("  Saving checkpoint")
                 save_net(checkpoint_filename)
                 saved_path = checkpoint_filename
             if new_best_valid and cfg.save_best_valid:
                 log("  Saving best validation (loss: {:.6f})".format(best_valid_loss))
-                if saved_path is not None:
-                    copy_checkpoint(saved_path, best_valid_filename)
+                # a light best net is never a copy of a full file
+                if saved_path is not None and not cfg.light_best_nets:
+                    checkpointer.copy(saved_path, best_valid_filename)
                 else:
-                    save_net(best_valid_filename)
-                    saved_path = best_valid_filename
+                    save_net(best_valid_filename, light=cfg.light_best_nets)
+                    if not cfg.light_best_nets:
+                        saved_path = best_valid_filename
+            if (lrs_is_cos and lr_sched is not None and lr_sched.just_restarted and cfg.save_restart_net_prefix
+                    and num_restarts >= cfg.save_after_n_restarts):
+                restart_path = "{}_{:02d}.pt".format(cfg.save_restart_net_prefix, num_restarts - 1)
+                log("  Saving network before restart {} to {}".format(num_restarts, restart_path))
+                if saved_path is not None and not cfg.light_best_nets:
+                    checkpointer.copy(saved_path, restart_path)
+                else:
+                    save_net(restart_path, light=cfg.light_best_nets)
+                    if not cfg.light_best_nets:
+                        saved_path = restart_path
 
-            log("  This epoch took {:.4f} hours!".format((time.time() - epoch_start) / 3600.0))
+            this_epoch_hours = (time.time() - epoch_start) / 3600.0
+            log("  This epoch took {:.4f} hours!".format(this_epoch_hours))
+            tot_time_hours += this_epoch_hours
+            epochs_this_session += 1
+            avg_epoch_time_hours = tot_time_hours / epochs_this_session
+            log("  Current average epoch runtime: {:.4f} hours".format(avg_epoch_time_hours))
+
+            if sigterm.requested:
+                keep_training = False
+                log("  Exiting - termination requested!")
+            if cfg.max_hours > 0 and tot_time_hours + avg_epoch_time_hours > cfg.max_hours:
+                keep_training = False
+                log("  Exiting - did not expect to be able to complete next epoch within time limit!")
             if cfg.max_num_restarts > 0:
                 if num_restarts >= cfg.max_num_restarts:
                     keep_training = False
@@ -228,7 +390,19 @@ def fit(
                 if saved_path is None:
                     save_net(checkpoint_filename)
                 elif saved_path != checkpoint_filename:
-                    copy_checkpoint(saved_path, checkpoint_filename)
+                    checkpointer.copy(saved_path, checkpoint_filename)
+        log("Training Hours: {:.4f}".format(tot_time_hours))
+        completed = True
+    finally:
+        # on an exception, a checkpointer error must not hide it
+        try:
+            checkpointer.wait()
+        except Exception:
+            if completed:
+                raise
+        train_loss_out.close()
+        valid_loss_out.close()
+        sigterm.restore()
 
     return {
         "model": model,
@@ -236,6 +410,7 @@ def fit(
         "cfg": cfg,
         "best_valid_loss": best_valid_loss,
         "epoch": epoch,
+        "num_restarts": num_restarts,
         "train_idx": train_idx,
         "valid_idx": valid_idx,
         "train_losses": train_losses,

@@ -41,13 +41,16 @@ def per_sample_losses(cfg: TrainConfig, out, seg: torch.Tensor, heats: torch.Ten
     return per_sample_dice(pred_seg, seg, skip_bg=False)
 
 
-def train_step(model, optimizer, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lr: float) -> torch.Tensor:
-    """One optimizer step on a raw device batch (projs, segs, lands).
-    Returns the detached scalar loss; nothing here waits for the device."""
-    projs, segs, lands = batch
-    prepared = prepare_batch(aug_cfg, gen, projs, segs, lands)
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The LR every param group steps with (and a checkpoint stores)."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def update_step(model, optimizer, cfg: TrainConfig, prepared: dict, lr: float) -> torch.Tensor:
+    """Forward, backward and one optimizer step on a prepared batch
+    (``prepare_batch``'s dict). Returns the detached scalar loss."""
+    set_lr(optimizer, lr)
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(prepared["proj"])
@@ -55,6 +58,13 @@ def train_step(model, optimizer, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, 
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def train_step(model, optimizer, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lr: float) -> torch.Tensor:
+    """One optimizer step on a raw device batch (projs, segs, lands).
+    Returns the detached scalar loss; nothing here waits for the device."""
+    projs, segs, lands = batch
+    return update_step(model, optimizer, cfg, prepare_batch(aug_cfg, gen, projs, segs, lands), lr)
 
 
 @torch.no_grad()

@@ -77,14 +77,26 @@ INFER_EVAL_MODULES = [
 ]
 
 
-def test_inference_and_eval_modules_import_no_jax_stack_or_h5py():
-    """The modules of the inference slice, imported one after another in a
-    fresh interpreter, load nothing of the JAX stack, nothing of the JAX
-    package, and no h5py or PIL (only the modules each import adds count)."""
+TRAINING_MODULES = [
+    "deepfluoro_tpu_torch.train",
+    "deepfluoro_tpu_torch.train.checkpoint",
+    "deepfluoro_tpu_torch.train.loop",
+    "deepfluoro_tpu_torch.train.multifold",
+    "deepfluoro_tpu_torch.data.pipeline",
+    "deepfluoro_tpu_torch.data.hdf5",
+    "deepfluoro_tpu_torch.compat.from_jax",
+    "deepfluoro_tpu_torch.cli.train",
+    "deepfluoro_tpu_torch.cli.train_folds",
+]
+
+
+def _modules_added_by_each_import(modules):
+    """The top-level modules each of ``modules`` adds to ``sys.modules``,
+    imported one after another in a fresh interpreter."""
     import subprocess
     import sys
 
-    for mod in INFER_EVAL_MODULES:
+    for mod in modules:
         path = ROOT / mod.replace(".", "/")
         assert path.with_suffix(".py") in FILES or path / "__init__.py" in FILES, mod
     code = (
@@ -95,10 +107,26 @@ def test_inference_and_eval_modules_import_no_jax_stack_or_h5py():
         "    importlib.import_module(mod)\n"
         "    added[mod] = sorted({{m.split('.')[0] for m in set(sys.modules) - before}})\n"
         "print(added)\n"
-    ).format(INFER_EVAL_MODULES)
+    ).format(modules)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True).stdout
-    added = ast.literal_eval(out.strip().splitlines()[-1])
+    return ast.literal_eval(out.strip().splitlines()[-1])
+
+
+def test_inference_and_eval_modules_import_no_jax_stack_or_h5py():
+    """The modules of the inference slice load nothing of the JAX stack,
+    nothing of the JAX package, and no h5py or PIL (only the modules each
+    import adds count)."""
+    added = _modules_added_by_each_import(INFER_EVAL_MODULES)
     assert "torch" in added[INFER_EVAL_MODULES[0]]
+    for mod, loaded in added.items():
+        assert not set(loaded) & set(FORBIDDEN + LAZY_ONLY), (mod, loaded)
+
+
+def test_training_modules_import_no_jax_stack_or_h5py():
+    """The same for the training modules: resume, the streaming feed, the
+    async checkpointer, fold training and both training CLIs."""
+    added = _modules_added_by_each_import(TRAINING_MODULES)
+    assert "torch" in added[TRAINING_MODULES[0]]
     for mod, loaded in added.items():
         assert not set(loaded) & set(FORBIDDEN + LAZY_ONLY), (mod, loaded)
 

@@ -4,7 +4,7 @@ weights on the same batches against JAX grad_and_update (augmentation off,
 so both sides see the same inputs; losses within 1e-4 relative, float32
 with another summation order in the convolutions and their gradients),
 then fit end to end on a tiny archive on the CPU, whose checkpoint the JAX
-package's reference-checkpoint importer must read."""
+package's reference-checkpoint importer must read and the port resumes."""
 
 import os
 
@@ -125,8 +125,11 @@ def test_fit_end_to_end_and_jax_reads_the_checkpoint(tmp_path):
             continue  # the dead conv (dropped by the importer) and BN's step counts
         np.testing.assert_array_equal(back[k].numpy(), v.numpy(), err_msg=k)
 
-    with pytest.raises(NotImplementedError, match="resume"):
-        fit(archive, [1, 2], cfg, verbose=False, device="cpu", **paths)
+    # an existing checkpoint resumes: one more epoch, the stored split reused
+    resumed = fit(archive, [1, 2], _tiny_cfg(max_num_epochs=3), verbose=False, device="cpu", **paths)
+    assert resumed["epoch"] == 3 and len(resumed["train_losses"]) == 3
+    assert resumed["train_idx"] == out["train_idx"] == ck["train-idx"]
+    assert load_checkpoint(paths["checkpoint_filename"])["epoch"] == 3
 
 
 def test_checkpoint_meta_matches_the_jax_key_set():
