@@ -55,14 +55,33 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      timed; the six best nets loaded through ``load_net_from_checkpoint``;
      one lockstep step on the card against the CPU from the same weights
      and batch, augmentation off, every fold's loss within 1e-3 relative;
-  8. profiler: ``torch.profiler``'s device time of the pair at each
+  8. ladder: (a) raw 1536^2 frames made from ``--seed`` through the fused
+     full-res prep and the ensemble (``infer/fullres.py::fullres_batches``,
+     the device half of ``cli/seg_fullres.py``) at 8x (phase 5's K = 6
+     members, 1436 -> 179 padded to 193), 2x (a seeded member, 718 -> 736)
+     and 1x (a seeded member, 1436 -> 1440, batch 2); card against CPU on
+     two frames per rung (prep within 1e-5, heats within 1e-3, labels
+     differing on < 0.1 % of pixels and only at near-ties), frames/s by the
+     --times contract and each rung's peak memory less its baseline; no
+     warp launch. (b) ``fit`` at full width at 2x (718 -> 736, batch 5) and
+     1x (1436 -> 1440, batch 2) with bf16 compute, remat and the streamed
+     feed, augmentation on, 2 epochs each: one warp launch per step,
+     steps/s and peak memory less baseline; then at 2x, from the trained
+     weights and one batch, augmentation off and cuDNN deterministic: remat
+     against no remat in float32 (loss within 1e-6 relative, gradients
+     within 1e-5 of each tensor's largest, BatchNorm buffers equal, both
+     peaks), bf16 against float32 (loss within 2e-2 relative), and the bf16
+     checkpoint reloaded through ``load_net_from_checkpoint`` running in
+     bf16;
+  9. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
 line. On success the line before the last is a JSON object describing the
 kernel (with its times at every geometry and its launches on each path:
-training, resume and stream, folds), and the last line is
+training, resume and stream, folds, 2x and 1x ladder training), and the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -79,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -123,6 +143,19 @@ TRAIN_PAD = 192
 TRAIN_DEPTH = 6
 TRAIN_WF = 5
 FOLD_PATS = [1, 2, 3, 4, 5, 6]  # K = 6 leave-one-specimen-out folds
+
+# the downsample ladder (scripts/e2e_ladder.sh): raw frames of the full-res
+# archive, and per rung (name, factor, padded input, members, batch) for
+# full-res inference: the 8x rung runs phase 5's ensemble, 2x and 1x one
+# seeded member each
+FULLRES_DIM = 1536
+FULLRES_FRAMES = 8
+FULLRES_CHECK_FRAMES = 2  # held card against CPU at each rung
+FULLRES_RUNGS = [("8x", 8, TRAIN_PAD, ENSEMBLE_K, 8), ("2x", 2, 736, 1, 4), ("1x", 1, 1440, 1, 2)]
+# training rungs (name, frame, padded input, batch, frames made): 13 frames
+# split 12 + 1 give 3 steps of 5 per epoch, 7 frames 3 steps of 2
+LADDER = [("2x", 718, 736, 5, 13), ("1x", 1436, 1440, 2, 7)]
+LADDER_EPOCHS = 2
 
 
 def _run(cmd):
@@ -284,7 +317,7 @@ def phase_kernel_check(seed):
         print("  {}: tiles staged in shared memory / sampled from global: projection {} / {}, labels {} / {}".format(
             label, *_routes(aug_m, oshape, off), *_routes(aug_m, (dim, dim), (0.0, 0.0))))
 
-        # each function binds this geometry's tensors: phase 6 calls kernel_pair again
+        # each function binds this geometry's tensors: the profiler phase calls kernel_pair again
         def kernel_pair(proj=proj, labels=labels, aug_m=aug_m, oshape=oshape, off=off):
             return warp.affine_warp_pair(proj, labels, aug_m, oshape, off)
 
@@ -392,7 +425,8 @@ def phase_profiler(pairs, kernel):
     kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     foreach = [k for k in kernels if "multi_tensor_apply" in k]
     print("  one train-mode forward of the 8x U-Net: {} kernels on the card, {} of them multi-tensor "
-          "(the BatchNorm running-variance correction)".format(len(kernels), len(foreach)))
+          "(the BatchNorm running-variance correction): {}".format(len(kernels), len(foreach),
+                                                                   [k[:100] for k in foreach]))
 
 
 def _smoke_data(seed):
@@ -481,7 +515,7 @@ def phase_training(seed, workdir, card):
         len(first_epoch) / sum(first_epoch), len(second_epoch) / sum(second_epoch)))
     peak = torch.cuda.max_memory_allocated()
     print("  [{}] fit's peak device memory less its baseline: {} bytes (max_memory_allocated {} bytes, "
-          "of which {} were allocated before fit: phase 3's inputs, kept for phase 6)".format(
+          "of which {} were allocated before fit: phase 3's inputs, kept for the profiler phase)".format(
         card, peak - before_fit, peak, before_fit))
 
     # the trained net on the card against the same net on the CPU, one frame
@@ -699,6 +733,7 @@ def phase_inference(seed, workdir, trained_ck, card):
     print("  warp kernel launches during the timed inference runs: {} (no kernel on this path)".format(launches))
     if launches != 0:
         raise AssertionError("inference launched the warp kernel")
+    return [trained_ck] + [os.path.join(workdir, "member_{}.pt".format(i)) for i in range(1, ENSEMBLE_K)]
 
 
 def _card(card):
@@ -922,6 +957,246 @@ def phase_folds(seed, workdir, card, kernel):
     return launches
 
 
+def _peak_start():
+    """Reset the peak-memory counter; returns the bytes allocated now."""
+    _sync()
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_since(baseline):
+    _sync()
+    return torch.cuda.max_memory_allocated() - baseline if DEVICE == "cuda" else 0
+
+
+def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
+    """One rung of full-res inference: the prep and the ensemble on the card
+    against the CPU on the first FULLRES_CHECK_FRAMES raw frames, then the
+    frames/s of ``fullres_batches`` over all of them (the --times
+    contract) and the rung's peak memory less its baseline. A label may
+    differ only where the CPU's top two mean probabilities are closer than
+    twice the largest probability difference (no other pixel can flip),
+    and that difference must stay within 1e-3."""
+    from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
+    from deepfluoro_tpu_torch.infer import ensemble_forward
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+
+    full_hw = spec["projs"].shape[1:]
+    baseline = _peak_start()
+    prep, hw = make_fullres_prep(factor, pad, full_hw)
+    nchk = FULLRES_CHECK_FRAMES
+    projs, rots = torch.from_numpy(spec["projs"][:nchk]), torch.from_numpy(spec["rots"][:nchk])
+    x_c = prep(projs, rots)
+    x_d = prep(projs.to(DEVICE), rots.to(DEVICE))
+    prep_err = float((x_d.cpu() - x_c).abs().max())
+    seg_c, heats_c, labels_c = ensemble_forward(cpu_models, x_c, hw, cpu_models[0].num_lands)
+    seg_err = float((ensemble_forward(models, x_d, hw, models[0].num_lands)[0].cpu() - seg_c).abs().max())
+    del x_d
+
+    def read_batch(i0, i1):
+        return spec["projs"][i0:i1], spec["rots"][i0:i1]
+
+    got = list(fullres_batches(read_batch, nchk, full_hw, models, factor, models[0].num_lands, None, batch, pad))
+    labels_d = np.concatenate([l for _, l, _ in got])
+    heats_d = np.concatenate([h for _, _, h in got])
+    heat_err = float(np.abs(heats_d - heats_c.numpy()).max())
+    differ = labels_d != labels_c.numpy()
+    top2 = torch.topk(seg_c, 2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    worst = float(margin[differ].max()) if differ.any() else 0.0
+    print("  {} rung ({}^2 raw -> {}^2, padded to {}^2, K = {}): card vs CPU on {} frames: prep max |diff| {:.2e} "
+          "(<= 1e-5), mean seg {:.2e} (<= 1e-3), heats {:.2e} (<= 1e-3), labels differ on {:.4%} of pixels "
+          "(< 0.1 %), largest CPU top-two margin there {:.2e} (<= twice the seg difference); {:.4%} of pixels have "
+          "a margin <= 1e-4".format(name, full_hw[0], hw[0], x_c.shape[-1], len(models), nchk, prep_err, seg_err,
+                                     heat_err, differ.mean(), worst, (margin <= 1e-4).mean()))
+    if tuple(labels_d.shape) != (nchk, *hw) or not np.isfinite(heats_d).all():
+        raise AssertionError("full-res output shapes {} or non-finite heats at {}".format(labels_d.shape, name))
+    if prep_err > 1e-5 or seg_err > 1e-3 or heat_err > 1e-3 or differ.mean() >= 1e-3 or worst > 2 * seg_err:
+        raise AssertionError("card and CPU full-res inference disagree at " + name)
+
+    times = []
+    for _ in fullres_batches(read_batch, len(spec["projs"]), full_hw, models, factor, models[0].num_lands, times,
+                             batch, pad):
+        pass
+    print("  {} {} rung: {:.2f} frames/s at batch {}, K = {}, over {} raw {}^2 frames (--times contract: copy to "
+          "the card, prep, forwards, mean, argmax); peak device memory less its baseline {} bytes".format(
+              _card(card), name, len(times) / sum(times), batch, len(models), len(times), full_hw[0],
+              _peak_since(baseline)))
+
+
+def _ladder_fit(seed, workdir, rung, frame, pad, batch, n_frames, card):
+    """``fit`` at full width on one rung with bfloat16 compute, remat and
+    the streamed feed (scripts/e2e_ladder.sh:64-72), augmentation on, for
+    LADDER_EPOCHS epochs; one warp launch per step. Returns (launches,
+    fit's output, checkpoint path, data)."""
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train import fit
+
+    data = make_synthetic_data(num_specimens=1, num_projs=n_frames, img_dim=frame, seed=seed + frame)
+    cfg = _recipe_cfg(data, seed, proj_unet_dim=pad, batch_size=batch, max_num_epochs=LADDER_EPOCHS,
+                      compute_dtype="bfloat16", remat=True)
+    files = _fit_files(workdir, "ladder" + rung)
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    out = fit(data, [1], cfg, verbose=False, stream_data=True, device=DEVICE, **files)
+    _sync()
+    launches = warp.warp_launches
+    peak = _peak_since(baseline)
+    steps = len(out["train_losses"])
+    losses = out["train_losses"] + out["valid_losses"]
+    sec = out["step_seconds"][1:]
+    print("  {} {} training, {}^2 -> {}^2, batch {}, bf16 + remat + streamed feed, augmentation on: {} steps in {} "
+          "epochs, {:.3f} steps/s after the first step ({:.3f} s); losses {}; peak device memory less its baseline "
+          "{} bytes".format(_card(card), rung, frame, pad, batch, steps, out["epoch"], len(sec) / sum(sec),
+                            out["step_seconds"][0], ["%.4f" % l for l in losses], peak))
+    if not all(math.isfinite(l) for l in losses) or out["epoch"] != LADDER_EPOCHS:
+        raise AssertionError("{} training did not run {} epochs with finite losses".format(rung, LADDER_EPOCHS))
+    model = out["model"]
+    if model.dtype != torch.bfloat16 or not model.remat or not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("{} training did not run bf16 compute with remat and float32 weights".format(rung))
+    print("  warp kernel launches during {} training: {} in {} steps (1 per step)".format(rung, launches, steps))
+    if launches != steps:
+        raise AssertionError("warp launches {} != 1 x {} steps at {}".format(launches, steps, rung))
+    return launches, out, files["checkpoint_filename"], data
+
+
+def _grad_step(model, cfg, prepared):
+    """One train-mode forward and backward of the training loss, no update:
+    (loss, {name: grad}, BatchNorm buffers, peak memory less baseline)."""
+    from deepfluoro_tpu_torch.train.step import per_sample_losses
+
+    baseline = _peak_start()
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = per_sample_losses(cfg, model(prepared["proj"]), prepared["seg"], prepared["heats"], True).mean()
+    loss.backward()
+    peak = _peak_since(baseline)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+    buffers = {k: v.detach().clone() for k, v in model.named_buffers()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, buffers, peak
+
+
+def _grad_diff(a, b):
+    """The largest, over tensors, of max |a - b| over max |b|."""
+    return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+
+def _grad_norm_diff(a, b):
+    """||a - b|| over ||b||, all tensors as one vector."""
+    num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
+    return math.sqrt(num / sum(float(b[k].double().square().sum()) for k in b))
+
+
+def _ladder_checks(out, ck_path, data, cfg_pad, card):
+    """At 2x, from the trained weights and one training batch, augmentation
+    off and cuDNN deterministic: remat against no remat in float32, bf16
+    against float32, and the bf16 checkpoint reloaded for inference."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+
+    cfg = out["cfg"]
+    rows = data.subset(out["train_idx"][: cfg.batch_size])
+    aug_off = AugmentConfig(num_classes=cfg.num_classes, proj_pad_dim=cfg_pad, prob_of_aug=0.0)
+    batch = tuple(torch.from_numpy(a).to(DEVICE) for a in (rows.projs, rows.segs, rows.lands))
+    prepared = prepare_batch(aug_off, None, *batch)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        steps = {}
+        for dtype, remat in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, False)):
+            model = copy.deepcopy(out["model"])
+            model.dtype, model.remat = dtype, remat
+            steps[(dtype, remat)] = _grad_step(model, cfg, prepared)
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, remat, bf16 = steps[(torch.float32, False)], steps[(torch.float32, True)], steps[(torch.bfloat16, False)]
+    loss_rel = abs(remat[0] - plain[0]) / abs(plain[0])
+    grad_rel = _grad_diff(remat[1], plain[1])
+    buffers_equal = remat[2].keys() == plain[2].keys() and all(torch.equal(remat[2][k], plain[2][k]) for k in plain[2])
+    print("  {} 2x step, remat against no remat, float32, deterministic cuDNN: loss {:.6f} vs {:.6f}, {:.2e} "
+          "relative (<= 1e-6); gradients within {:.2e} of each tensor's largest (<= 1e-5); BatchNorm buffers "
+          "equal: {}; peak device memory less its baseline {} bytes with remat, {} without".format(
+              _card(card), remat[0], plain[0], loss_rel, grad_rel, buffers_equal, remat[3], plain[3]))
+    if loss_rel > 1e-6 or grad_rel > 1e-5 or not buffers_equal:
+        raise AssertionError("the remat step differs from the plain step")
+    loss_rel = abs(bf16[0] - plain[0]) / abs(plain[0])
+    grad_rel = _grad_diff(bf16[1], plain[1])
+    print("  {} 2x step, bf16 against float32: loss {:.6f} vs {:.6f}, {:.2e} relative (<= 2e-2); gradients {:.2e} "
+          "relative in norm, within {:.2e} of each tensor's largest; peak device memory less its baseline {} "
+          "bytes".format(_card(card), bf16[0], plain[0], loss_rel, _grad_norm_diff(bf16[1], plain[1]), grad_rel,
+                         bf16[3]))
+    if loss_rel > 2e-2 or not all(torch.isfinite(g).all() for g in bf16[1].values()):
+        raise AssertionError("the bf16 step is too far from the float32 step")
+
+    model, loaded = load_net_from_checkpoint(ck_path, device=DEVICE, verbose=False)
+    twin = copy.deepcopy(model)
+    twin.dtype = torch.float32
+    with torch.no_grad():
+        seg, heats = model(prepared["proj"])
+        seg_f, heats_f = twin(prepared["proj"])
+    err = float((seg - seg_f).abs().max())
+    print("  bf16 checkpoint reloaded through load_net_from_checkpoint: compute-dtype {}, model dtype {}, remat {}; "
+          "outputs {} / {}, eval seg within {:.2e} of its float32 twin (bf16 ran: > 0; <= 5e-2)".format(
+              loaded.compute_dtype, model.dtype, model.remat, seg.dtype, heats.dtype, err))
+    if model.dtype != torch.bfloat16 or seg.dtype != torch.float32 or not 0 < err <= 5e-2:
+        raise AssertionError("the bf16 checkpoint did not load and run in bf16")
+
+
+def phase_ladder(seed, workdir, member_paths, card):
+    """The downsample ladder: (a) raw FULLRES_DIM^2 frames through the fused
+    prep and the ensemble at 8x (phase 5's members), 2x and 1x (a seeded
+    member each), card against CPU, frames/s and peak memory per rung, no
+    warp launch; (b) ``fit`` at 2x and 1x with bf16, remat and the streamed
+    feed, one warp launch per step, then the 2x checks. Returns the warp
+    launches of the 2x and 1x training runs."""
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data
+    from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=FULLRES_FRAMES, img_dim=FULLRES_DIM, seed=seed + 5)[0]
+    print("  {} raw {}^2 frames made from the seed in {:.1f} s ({} with the rot-180 flag)".format(
+        FULLRES_FRAMES, FULLRES_DIM, time.perf_counter() - t0, int(spec["rots"].sum())))
+    warp.warp_launches = 0
+    for name, factor, pad, k, batch in FULLRES_RUNGS:
+        if k > 1:
+            members = [load_net_from_checkpoint(p, device=DEVICE, verbose=False) for p in member_paths[:k]]
+            models = [m for m, _ in members]
+            if members[0][1].proj_unet_dim != pad:
+                raise AssertionError("phase 5's members are not padded to {}".format(pad))
+        else:
+            data_cfg = _recipe_cfg(types.SimpleNamespace(num_lands=spec["lands"].shape[-1]), seed, proj_unet_dim=pad)
+            prep, _ = make_fullres_prep(factor, pad, spec["projs"].shape[1:])
+            calib = prep(torch.from_numpy(spec["projs"][:batch]).to(DEVICE), torch.from_numpy(spec["rots"][:batch]).to(DEVICE))
+            path = os.path.join(workdir, "fullres_{}.pt".format(name))
+            save_checkpoint(path, data_cfg, _seeded_member(data_cfg, seed * 1000 + pad, calib))
+            del calib
+            models = [load_net_from_checkpoint(path, device=DEVICE, verbose=False)[0]]
+        cpu_models = [copy.deepcopy(m).cpu() for m in models]
+        _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card)
+        del models, cpu_models
+    launches = warp.warp_launches
+    print("  warp kernel launches during full-res inference: {} (no kernel on this path)".format(launches))
+    if launches != 0:
+        raise AssertionError("full-res inference launched the warp kernel")
+    del spec
+
+    counts = {}
+    for rung, frame, pad, batch, n_frames in LADDER:
+        counts[rung], out, ck_path, data = _ladder_fit(seed, workdir, rung, frame, pad, batch, n_frames, card)
+        if rung == "2x":
+            _ladder_checks(out, ck_path, data, pad, card)
+        del out, data
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic data, weights and draws")
@@ -941,7 +1216,8 @@ def main(argv=None) -> int:
             ("5 inference", lambda: phase_inference(args.seed, workdir, results["4 training"][1], results["1 environment"])),
             ("6 resume and stream", lambda: phase_resume_and_stream(args.seed, workdir, results["1 environment"])),
             ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
-            ("8 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"], results["1 environment"])),
+            ("9 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -958,6 +1234,8 @@ def main(argv=None) -> int:
         "training": results["4 training"][0],
         "resume_and_stream": results["6 resume and stream"],
         "folds": results["7 folds"],
+        "ladder_2x_training": results["8 ladder"]["2x"],
+        "ladder_1x_training": results["8 ladder"]["1x"],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
     print("total {:.1f} s".format(time.perf_counter() - t_all))

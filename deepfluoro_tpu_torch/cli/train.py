@@ -12,9 +12,9 @@ the flags of the IPCAI paper recipe (reference train_test_code/Readme.md:
     --heat-coeff 0.5
 
 An existing ``--checkpoint-net`` file resumes the run. Runs on CUDA;
-without a card it refuses unless given ``--no-gpu``. Not ported: ``--bf16``,
-``--remat``, the mesh and process flags, ``--profile-dir`` and
-``--debug-nans``.
+without a card it refuses unless given ``--no-gpu``. The ladder's big
+rungs train with ``--bf16 --remat --stream-data``. Not ported: the mesh
+and process flags, ``--profile-dir`` and ``--debug-nans``.
 """
 
 from __future__ import annotations
@@ -70,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dice-valid", help="validate with the dice term only", action="store_true")
     p.add_argument("--train-valid-split", help="fraction of the pool used for training; active in [0,1], overrides --valid-pats", type=float, default=-1.0)
     p.add_argument("--stream-data", help="keep the dataset in host memory and prefetch batches to the device (for archives too large for device memory); default keeps the dataset on the device", action="store_true")
+    p.add_argument("--bf16", help="Use bfloat16 compute (float32 params)", action="store_true")
+    p.add_argument("--remat", help="Rematerialize activations per U-Net block during backprop: fits large-resolution frames / bigger batches in device memory for ~1 extra forward of compute; results equal up to float reassociation", action="store_true")
     p.add_argument("--dup-lr-flip", help="duplicate every training sample with a left/right mirror (flipped projections, bilateral seg labels and landmark pairs swapped); mirrors join after the train/valid split", action="store_true")
     p.add_argument("--seed", help="random seed", type=int, default=0)
     return p
@@ -125,6 +127,8 @@ def main(argv=None):
         light_best_nets=args.light_best_nets,
         seed=args.seed,
         dup_lr_flip=args.dup_lr_flip,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        remat=args.remat,
     )
     fit(
         args.input_data_file_path,

@@ -15,8 +15,8 @@ Writes, per fold (specimen XX is held out of its fold's training):
   <checkpoint-prefix>_specXX.pt   periodic checkpoint; a full set resumes
 
 Runs on CUDA; without a card it refuses unless given ``--no-gpu``. Not
-ported: ``--ensemble-devices``, ``--num-processes``, ``--process-id``,
-``--coordinator``, ``--bf16`` and ``--remat``.
+ported: ``--ensemble-devices``, ``--num-processes``, ``--process-id``
+and ``--coordinator``.
 """
 
 from __future__ import annotations
@@ -74,6 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream-data", help="Keep the union dataset in host memory and prefetch the lockstep batches to the device (for archives too large for device memory); default keeps the union on the device", action="store_true")
     p.add_argument("--dup-lr-flip", help="Duplicate every training sample with a left/right mirror; mirrors join after each fold's split (validation and held-out frames stay mirror-free)", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--remat", help="Rematerialize activations per U-Net block (memory for compute; equal up to float reassociation)", action="store_true")
     p.add_argument("--no-gpu", help="run on the CPU", action="store_true")
     return p
 
@@ -123,6 +125,8 @@ def main(argv=None):
         save_after_n_restarts=args.save_after_n_restarts,
         seed=args.seed,
         dup_lr_flip=args.dup_lr_flip,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        remat=args.remat,
     )
     out = fit_multifold(
         args.input_data_file_path,

@@ -48,7 +48,9 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     reference test_ensemble.py:61-107): the port's own checkpoints and the
     reference's ``train.py`` files share the ``.pt`` layout, as do those
     the JAX package's ``compat/torch_import.py::export_torch_checkpoint``
-    writes. The model is in eval mode on ``device`` (default CUDA).
+    writes. The model is in eval mode on ``device`` (default CUDA), at
+    the checkpoint's compute dtype and remat setting, as the JAX loader's
+    ``build_model(cfg)`` builds it.
 
     Checkpoints do not store the landmark head's shape; it is read from
     the state-dict keys (``lands_block.*``, ``lands_1x1.*``), as the JAX
@@ -59,7 +61,7 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     dev = get_device(device)
     ck = torch.load(path, map_location="cpu", weights_only=False)
     meta = {k: v for k, v in ck.items() if not k.endswith("state-dict") and k != "loss"}
-    cfg = TrainConfig.from_checkpoint_meta(meta, training=False)
+    cfg = TrainConfig.from_checkpoint_meta(meta)
     sd = ck["model-state-dict"]
     if verbose:
         print("  loading unet params from torch (reference) checkpoint...")

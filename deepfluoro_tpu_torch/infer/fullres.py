@@ -1,0 +1,168 @@
+"""Full-resolution ensemble inference: raw archive -> nn-segs/nn-heats
+(JAX counterpart: ``deepfluoro_tpu/infer/fullres.py``).
+
+The reference serves only preprocessed per-rung archives
+(hdf5_layouts/Readme.md:42-45). Here each batch of raw frames goes through
+the whole preprocess on the device (crop 50 px, Beer-Lambert log, rot-180
+where flagged, downsample, reflect-pad, z-norm: ``data/preprocess.py::
+make_fullres_prep``) and then the ensemble forward of ``infer/ensemble.py``
+(K forwards, per-member min-max heats, member mean, argmax), so one
+call serves raw 1536^2 frames at any downsample factor.
+
+As for ``ensemble_batches``, the device half (``fullres_batches``) takes
+frames from a reader callable and yields host batches, so it runs where
+h5py is not installed; ``seg_fullres_dataset`` reads the archive and
+writes the output through ``write_ensemble_outputs``: ``nn-segs`` (N, h,
+w) u1 gzip 9 and ``nn-heats`` (N, L, h, w), in (specimen, projection-key)
+order and in the preprocessed orientation, so ``est_lands_csv`` and
+``compute_actual_dice_on_test`` read them against a preprocessed archive
+of the same factor.
+
+Not ported: ``quantized`` (int8) and the JAX module's meshes.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, make_fullres_prep
+from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
+
+
+def list_fullres_frames(src, specimens=None):
+    """(specimen, projection-key) index of an open full-res archive, in
+    the given specimen order (default: every specimen group in file order)
+    and sorted projection keys."""
+    if specimens is None:
+        specimens = [k for k in src.keys() if k != "proj-params"]
+    entries = []
+    for spec in specimens:
+        if spec not in src:
+            raise ValueError(
+                "specimen group '{}' not in the archive (has: {})".format(
+                    spec, ", ".join(k for k in src.keys() if k != "proj-params")
+                )
+            )
+        for pk in sorted(src[spec]["projections"].keys()):
+            entries.append((spec, pk))
+    return entries
+
+
+def fullres_land_names(src, entries):
+    """Landmark names from the first projection carrying gt-landmarks, in
+    sorted order (``full_res_to_preprocessed``'s convention), or None."""
+    for spec, pk in entries:
+        pg = src[spec]["projections"][pk]
+        if "gt-landmarks" in pg:
+            return sorted(pg["gt-landmarks"].keys())
+    return None
+
+
+def fullres_batches(
+    read_batch,
+    n: int,
+    full_hw,
+    models,
+    ds_factor: int,
+    num_lands: int = 0,
+    times: list | None = None,
+    batch_size: int = 4,
+    pad_img_dim: int = 0,
+):
+    """A generator of ``(start, labels (b, h, w) uint8, heats (b, L, h, w)
+    float32 or None)`` numpy batches of the ensemble over ``n`` raw frames,
+    in order, on the members' device.
+
+    ``read_batch(i0, i1) -> (projs (i1 - i0, H, W) float32, rot_flags
+    (i1 - i0,) bool)`` numpy arrays gives the frames. A final partial batch
+    is padded with its last frame, so every batch has one shape, run once
+    before the timing starts. With ``times`` each real frame gets its
+    batch's wall-clock over the real frames: the copy to the device, prep,
+    K forwards, mean and argmax, up to a synchronise; the readback falls
+    outside. Raises ValueError at once when the nets' ``pad_img_dim`` is
+    below the frame size at ``ds_factor`` (nets of another rung)."""
+    if n == 0:
+        raise ValueError("no projections selected")
+    hc = fullres_crop_size(ds_factor, full_hw)[0]
+    if pad_img_dim < hc:
+        raise ValueError(
+            "checkpoint proj_unet_dim {} is smaller than the {}x frame size {} — these nets were trained "
+            "for a different downsample factor".format(pad_img_dim, ds_factor, hc)
+        )
+    prep, orig_hw = make_fullres_prep(ds_factor, pad_img_dim, full_hw)
+    return _batches(read_batch, n, tuple(full_hw), models, prep, orig_hw, num_lands, times, min(batch_size, n))
+
+
+def _batches(read_batch, n, full_hw, models, prep, orig_hw, num_lands, times, batch_size):
+    dev = next(models[0].parameters()).device
+
+    def run(projs, rots):
+        return ensemble_forward(models, prep(projs, rots), orig_hw, num_lands)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for model in models:
+        model.eval()
+    run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
+    sync()
+
+    for i0 in range(0, n, batch_size):
+        i1 = min(i0 + batch_size, n)
+        real_b = i1 - i0
+        projs, rots = read_batch(i0, i1)
+        if real_b < batch_size:
+            pad = batch_size - real_b
+            projs = np.concatenate([projs, np.repeat(projs[-1:], pad, axis=0)])
+            rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
+        t0 = time.perf_counter()
+        _, avg_heats, labels = run(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))
+        sync()
+        elapsed = time.perf_counter() - t0
+        if times is not None:
+            times.extend([elapsed / real_b] * real_b)
+        yield i0, labels[:real_b].cpu().numpy(), None if avg_heats is None else avg_heats[:real_b].cpu().numpy()
+
+
+def seg_fullres_dataset(
+    src,
+    specimens,
+    models,
+    h5_f,
+    ds_factor: int,
+    num_lands: int = 0,
+    times: list | None = None,
+    batch_size: int = 4,
+    pad_img_dim: int = 0,
+    quantized: bool = False,
+):
+    """Run the ensemble over the raw frames of the open full-res archive
+    ``src`` (``specimens``: group names, None for all) and write
+    ``nn-segs``/``nn-heats`` into the open h5py file ``h5_f``. ``models``
+    are members from ``load_net_from_checkpoint``. Returns the (specimen,
+    projection-key) entries in output order."""
+    if quantized:
+        raise NotImplementedError("int8 full-res inference is not ported yet (ROADMAP §1 item 6)")
+    entries = list_fullres_frames(src, specimens)
+    if not entries:
+        raise ValueError("no projections selected")
+    first = src[entries[0][0]]["projections"][entries[0][1]]
+    full_hw = tuple(first["image/pixels"].shape)
+
+    def read_batch(i0, i1):
+        projs = np.empty((i1 - i0, *full_hw), np.float32)
+        rots = np.empty((i1 - i0,), bool)
+        for j, (spec, pk) in enumerate(entries[i0:i1]):
+            pg = src[spec]["projections"][pk]
+            projs[j] = pg["image/pixels"][:]
+            rots[j] = bool(np.asarray(pg["rot-180-for-up"][()]))
+        return projs, rots
+
+    batches = fullres_batches(read_batch, len(entries), full_hw, models, ds_factor, num_lands, times, batch_size,
+                              pad_img_dim)
+    write_ensemble_outputs(h5_f, batches, len(entries), fullres_crop_size(ds_factor, full_hw), num_lands)
+    return entries

@@ -25,13 +25,24 @@ torch momentum 0.1 (flax momentum 0.9). Its running statistics follow
 flax: a train-mode forward of ``UNet`` moves the running variance toward
 the biased batch variance (divisor n), where torch (and the reference)
 take the unbiased one; see ``UNet.forward``.
+
+``dtype=torch.bfloat16`` runs the convolutions and BatchNorm in bfloat16
+under ``torch.autocast`` on the module's device, with float32 weights,
+BatchNorm statistics, softmax and heatmaps, as the JAX package's
+``dtype``. ``remat`` recomputes each down and up block's activations in
+backward (``torch.utils.checkpoint``), as its ``nn.remat`` per block; the
+recompute moves no BatchNorm running statistic, as flax discards the
+recomputed ``batch_stats``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepfluoro_tpu_torch.ops.image import center_crop
 
@@ -39,13 +50,23 @@ from deepfluoro_tpu_torch.ops.image import center_crop
 class BatchNorm2d(nn.BatchNorm2d):
     """torch's BatchNorm2d (same buffers and state_dict keys) that records
     the values per channel of its last train-mode input, ``n_last``, for
-    the running-variance correction in ``UNet.forward``."""
+    the running-variance correction in ``UNet.forward``. While
+    ``recomputing`` (a rematerialized block's forward, run again inside
+    backward), a train-mode forward updates copies of the running
+    statistics, which are thrown away: the output and the tensors saved
+    for backward are those of the first forward."""
 
     n_last = 0
+    recomputing = False
 
     def forward(self, x):
         if self.training:
             self.n_last = x.numel() // x.shape[1]
+            if self.recomputing:
+                return F.batch_norm(
+                    x, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias, True,
+                    self.momentum, self.eps,
+                )
         return super().forward(x)
 
 
@@ -122,8 +143,12 @@ class UNet(nn.Module):
         lands_block_depth: int = 0,
         lands_num_1x1: int = 2,
         do_soft_max: bool = True,
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
+        self.dtype = dtype
+        self.remat = remat
         self.max_pool = max_pool
         self.num_lands = num_lands
         self.do_soft_max = do_soft_max
@@ -176,16 +201,39 @@ class UNet(nn.Module):
         bns = self._bns if self.training else []
         if bns:
             old = torch._foreach_mul([m.running_var for m in bns], 1.0 - bns[0].momentum)
-        out = self._forward(x)
+        if self.dtype == torch.float32:
+            out = self._forward(x)
+        else:
+            with torch.autocast(x.device.type, dtype=self.dtype):
+                out = self._forward(x)
         if bns:
             torch._foreach_lerp_([m.running_var.data for m in bns], old, [1.0 / m.n_last for m in bns])
         return out
+
+    @contextlib.contextmanager
+    def _recomputing(self):
+        for m in self._bns:
+            m.recomputing = True
+        try:
+            yield
+        finally:
+            for m in self._bns:
+                m.recomputing = False
+
+    def _block(self, block, *args):
+        """``block(*args)``; with ``remat``, while gradients are recorded,
+        its activations are recomputed in backward instead of kept."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(*args)
+        return checkpoint(
+            block, *args, use_reentrant=False, context_fn=lambda: (contextlib.nullcontext(), self._recomputing())
+        )
 
     def _forward(self, x):
         blocks = []
         depth = len(self.down_path)
         for i, down in enumerate(self.down_path):
-            x = down(x)
+            x = self._block(down, x)
             if i != depth - 1:
                 blocks.append(x)
                 if self.max_pool:
@@ -193,7 +241,7 @@ class UNet(nn.Module):
                 else:
                     x = self.downsample_convs[i](x)
         for j, up in enumerate(self.up_path):
-            x = up(x, blocks[-j - 1])
+            x = self._block(up, x, blocks[-j - 1])
 
         seg_logits = self.seg_conv(x)
         seg = torch.softmax(seg_logits.float(), dim=1) if self.do_soft_max else seg_logits.float()

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from deepfluoro_tpu_torch.models.unet import UNet
 
 
@@ -50,6 +52,13 @@ class TrainConfig:
     # statistics only (no optimizer or scheduler state)
     light_best_nets: bool = False
     seed: int = 0
+    # 'float32' | 'bfloat16': convolutions and BatchNorm in bfloat16 under
+    # autocast; weights, statistics, softmax, heatmaps and losses float32
+    compute_dtype: str = "float32"
+    # recompute each U-Net block's activations in backward
+    # (models/unet.py::UNet.remat): less activation memory for about one
+    # extra forward; results equal up to float reassociation
+    remat: bool = False
     # append a left/right mirror of every training sample, after the split
     # (data/hdf5.py::lr_flip_duplicate)
     dup_lr_flip: bool = False
@@ -85,41 +94,28 @@ class TrainConfig:
         "save-best-valid": "save_best_valid",
         "light-best-nets": "light_best_nets",
         "init-lr": "init_lr",
+        "compute-dtype": "compute_dtype",
+        "remat": "remat",
         "dup-lr-flip": "dup_lr_flip",
     }
 
-    # keys of the JAX package's metadata for options not ported yet: the
-    # port writes the value that means "off", so readers see the full key
-    # set, and refuses a checkpoint that asks for anything else
-    _FIXED_META = {
-        "compute-dtype": "float32",
-        "remat": False,
-    }
-
     def to_checkpoint_meta(self) -> dict:
-        meta = {k: getattr(self, attr) for k, attr in self._META_KEYS.items()}
-        meta.update(self._FIXED_META)
-        return meta
+        return {k: getattr(self, attr) for k, attr in self._META_KEYS.items()}
 
     @classmethod
-    def from_checkpoint_meta(cls, meta: dict, base: "TrainConfig | None" = None, training: bool = True) -> "TrainConfig":
-        """Stored keys override; absent ones keep ``base``'s values. With
-        ``training``, raises ValueError when the checkpoint asks for an
-        option the port does not train with (bfloat16 compute,
-        rematerialization): going on in float32 without saying so would be
-        another run. Inference reads such a net's float32 weights as they
-        are (``training=False``)."""
-        for k, off in cls._FIXED_META.items():
-            if training and k in meta and meta[k] != off:
-                raise ValueError(
-                    "checkpoint asks for {}={!r}, which deepfluoro_tpu_torch does not support "
-                    "(only {!r})".format(k, meta[k], off)
-                )
+    def from_checkpoint_meta(cls, meta: dict, base: "TrainConfig | None" = None) -> "TrainConfig":
+        """Stored keys override; absent ones keep ``base``'s values."""
         cfg = dataclasses.replace(base) if base is not None else cls()
         for k, attr in cls._META_KEYS.items():
             if k in meta:
                 setattr(cfg, attr, meta[k])
         return cfg
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be 'float32' or 'bfloat16', got {!r}".format(self.compute_dtype))
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
 def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> UNet:
@@ -138,4 +134,6 @@ def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int
         block_depth=cfg.block_depth,
         lands_block_depth=lands_block_depth,
         lands_num_1x1=lands_num_1x1,
+        dtype=cfg.dtype,
+        remat=cfg.remat,
     )

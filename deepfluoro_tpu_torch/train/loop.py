@@ -15,8 +15,10 @@ BatchNorm statistics, optimizer and scheduler state, epoch, best
 validation loss and restart count carry on. Saves run on a worker thread
 (``AsyncCheckpointer``).
 
-Not ported yet: bfloat16 compute and rematerialization (refused on
-resume), meshes and the multi-host feed.
+``cfg.compute_dtype`` and ``cfg.remat`` build the model (bfloat16
+convolutions under autocast, per-block recompute); a resumed run keeps
+the checkpoint's. Losses are computed from the float32 outputs. Not
+ported yet: meshes and the multi-host feed.
 """
 
 from __future__ import annotations

@@ -74,6 +74,10 @@ INFER_EVAL_MODULES = [
     "deepfluoro_tpu_torch.cli.test_ensemble",
     "deepfluoro_tpu_torch.cli.est_lands_csv",
     "deepfluoro_tpu_torch.cli.compute_actual_dice_on_test",
+    "deepfluoro_tpu_torch.data.preprocess",
+    "deepfluoro_tpu_torch.infer.fullres",
+    "deepfluoro_tpu_torch.cli.seg_fullres",
+    "deepfluoro_tpu_torch.cli.preprocess_full_res",
 ]
 
 
@@ -113,9 +117,10 @@ def _modules_added_by_each_import(modules):
 
 
 def test_inference_and_eval_modules_import_no_jax_stack_or_h5py():
-    """The modules of the inference slice load nothing of the JAX stack,
-    nothing of the JAX package, and no h5py or PIL (only the modules each
-    import adds count)."""
+    """The modules of the inference slice and of full-res preprocessing
+    and inference load nothing of the JAX stack, nothing of the JAX
+    package, and no h5py or PIL (only the modules each import adds
+    count)."""
     added = _modules_added_by_each_import(INFER_EVAL_MODULES)
     assert "torch" in added[INFER_EVAL_MODULES[0]]
     for mod, loaded in added.items():

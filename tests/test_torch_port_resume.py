@@ -171,16 +171,22 @@ def test_resume_overrides_config_and_restores_state(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("compute-dtype", "bfloat16"), ("remat", True)])
-def test_resume_refuses_options_the_port_lacks(tmp_path, key, value):
+def test_resume_keeps_bf16_and_remat(tmp_path, key, value):
+    """A checkpoint that asks for bfloat16 compute or remat resumes in that
+    mode, whatever the caller's config says, and saves it again."""
     data = make_synthetic_data(num_specimens=2, num_projs=4, img_dim=32, seed=1)
     paths = _files(tmp_path, "x")
     fit(data, [1, 2], _cfg(), verbose=False, device="cpu", **paths)
     ck = load_checkpoint(paths["checkpoint_filename"])
     ck[key] = value
     torch.save(ck, paths["checkpoint_filename"])
-    with pytest.raises(ValueError, match=key):
-        fit(data, [1, 2], _cfg(max_num_epochs=2), verbose=False, device="cpu", **paths)
-    assert TrainConfig.from_checkpoint_meta({key: value}, training=False).depth == TrainConfig().depth
+    out = fit(data, [1, 2], _cfg(max_num_epochs=2), verbose=False, device="cpu", **paths)
+    attr = TrainConfig._META_KEYS[key]
+    assert getattr(out["cfg"], attr) == value and out["epoch"] == 2
+    model = out["model"]
+    assert (model.dtype, model.remat) == (out["cfg"].dtype, out["cfg"].remat)
+    assert np.isfinite(out["train_losses"]).all() and len(out["train_losses"]) == 3
+    assert load_checkpoint(paths["checkpoint_filename"])[key] == value
 
 
 def test_stream_equals_resident(tmp_path):
