@@ -73,12 +73,30 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      peaks), bf16 against float32 (loss within 2e-2 relative), and the bf16
      checkpoint reloaded through ``load_net_from_checkpoint`` running in
      bf16;
-  9. profiler: ``torch.profiler``'s device time of the pair at each
+  9. int8: (a) ``ops/int8_conv.py``'s card route (int8 im2col and
+     ``torch._int_mm``) bit-equal (int32) to its plain float64 version for
+     every distinct convolution of the 8x net (depth 6, wf 5, 192^2) at 2
+     frames, and each timed at batch 64 beside its GEMM alone and cuDNN's
+     float32 and bf16 convolutions; activation and weight quantization
+     equal on card and CPU; (b) phase 5's K = 6 members int8: card
+     against CPU on the same scales and input (mean seg and heats within
+     1e-3, labels differing on < 0.1 % of pixels and only at near-ties),
+     labels against the float ensemble's, ``ensemble_batches(quantized=
+     True)`` equal to the direct int8 forward; frames/s at batch 64 for
+     K = 6 and K = 1 by the --times contract, float and int8 in turns
+     (float, int8, int8, float), each run's peak less its baseline, and
+     K = 6 with the finest level in float; (c) the 8x full-res rung (K =
+     6, batch 8) int8, checked the same way and timed in turns; (d) one
+     int8 GEMM per convolution of every timed int8 forward, no warp
+     launch;
+ 10. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
-line. On success the line before the last is a JSON object describing the
+line. On success a line ``int8 summary: {...}`` carries phase 9's rates,
+peaks and GEMM launches; the line before the last is a JSON object
+describing the
 kernel (with its times at every geometry and its launches on each path:
 training, resume and stream, folds, 2x and 1x ladder training), and the
 last line is
@@ -156,6 +174,13 @@ FULLRES_RUNGS = [("8x", 8, TRAIN_PAD, ENSEMBLE_K, 8), ("2x", 2, 736, 1, 4), ("1x
 # split 12 + 1 give 3 steps of 5 per epoch, 7 frames 3 steps of 2
 LADDER = [("2x", 718, 736, 5, 13), ("1x", 1436, 1440, 2, 7)]
 LADDER_EPOCHS = 2
+
+# the int8 phase: every distinct convolution of the 8x net held bit-equal
+# to its plain version at INT8_CHECK_BATCH frames and timed at the
+# ensemble's batch; the int8 ensemble checked on INT8_CHECK_FRAMES frames
+INT8_CHECK_BATCH = 2
+INT8_TIMED_ITERS = 10
+INT8_CHECK_FRAMES = 2
 
 
 def _run(cmd):
@@ -1197,6 +1222,296 @@ def phase_ladder(seed, workdir, member_paths, card):
     return counts
 
 
+def _event_ms(fn, iters=INT8_TIMED_ITERS):
+    """Device time of one call of ``fn``: CUDA events around ``iters`` calls
+    after two warm-up calls (the calls allocate, so no CUDA graph)."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _conv_shapes(cfg):
+    """The distinct convolutions of ``cfg``'s net at its padded input, in
+    forward order: (kind, in channels, H, W, out channels, kernel, stride,
+    padding), read by forward hooks on a meta-device forward."""
+    from deepfluoro_tpu_torch.train.config import build_model
+
+    model = build_model(cfg).to("meta").eval()
+    shapes = []
+
+    def hook(mod, args, _out):
+        c, h, w = args[0].shape[1:]
+        kind = "transpose" if isinstance(mod, torch.nn.ConvTranspose2d) else "conv"
+        o = mod.out_channels
+        key = (kind, c, h, w, o, mod.kernel_size[0], mod.stride[0], mod.padding[0])
+        if key not in shapes:
+            shapes.append(key)
+
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros((1, 1, cfg.proj_unet_dim, cfg.proj_unet_dim), device="meta"))
+    return shapes
+
+
+def _int8_conv_check(cfg, gen, batch):
+    """(a) Every distinct convolution of the net: ``int8_conv2d`` /
+    ``int8_conv_transpose2x2`` on the card bit-equal (int32) to the plain
+    float64 version on the same full-range int8 operands; then at
+    ``batch`` frames the route's time beside its GEMM alone and cuDNN's
+    float32 and bf16 convolutions of the same shapes."""
+    import torch.nn.functional as F
+
+    from deepfluoro_tpu_torch.ops import int8_conv
+
+    def draw(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=DEVICE, dtype=torch.int8)
+
+    rows = []
+    for kind, c, h, w, o, k, stride, pad in _conv_shapes(cfg):
+        label = "{} {}x{} s{} p{}: {} -> {} at {}x{}".format(kind, k, k, stride, pad, c, o, h, w)
+        wq = draw(c, o, k, k) if kind == "transpose" else draw(o, c, k, k)
+        if kind == "transpose":
+            route = lambda x: int8_conv.int8_conv_transpose2x2(x, wq)  # noqa: E731
+            plain = lambda x: int8_conv.plain_conv_transpose2x2(x, wq)  # noqa: E731
+            wmat = int8_conv.gemm_weight(wq, transpose=True)
+        else:
+            route = lambda x: int8_conv.int8_conv2d(x, wq, stride, pad)  # noqa: E731
+            plain = lambda x: int8_conv.plain_conv2d(x, wq, stride, pad)  # noqa: E731
+            wmat = int8_conv.gemm_weight(wq)
+        x = draw(INT8_CHECK_BATCH, c, h, w)
+        got, want = route(x), plain(x)
+        _sync()
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError("the int8 route differs from its plain version: " + label)
+
+        x = draw(batch, c, h, w)
+        xf, wf = x.float(), wq.float()
+        if kind == "transpose":
+            f32 = lambda: F.conv_transpose2d(xf, wf, None, 2)  # noqa: E731
+            bf16 = lambda: F.conv_transpose2d(xb, wb, None, 2)  # noqa: E731
+            a = int8_conv.im2col(x, 1)[0]
+        else:
+            f32 = lambda: F.conv2d(xf, wf, None, stride, pad)  # noqa: E731
+            bf16 = lambda: F.conv2d(xb, wb, None, stride, pad)  # noqa: E731
+            a = int8_conv.im2col(x, k, stride, pad)[0]
+        # the GEMM's operand as the route pads it: K to the weight matrix's, M to 17 rows
+        a = F.pad(a, (0, wmat.shape[1] - a.shape[1], 0, max(0, 17 - a.shape[0]))).contiguous()
+        xb, wb = xf.bfloat16(), wf.bfloat16()
+        row = {
+            "shape": label,
+            "route_ms": _event_ms(lambda: route(x)),
+            "gemm_ms": _event_ms(lambda: torch._int_mm(a, wmat.t())),
+            "float32_ms": _event_ms(f32),
+            "bf16_ms": _event_ms(bf16),
+        }
+        del x, xf, xb, a
+        rows.append(row)
+        print("  {}: bit-equal to the plain version; at batch {}: route {:.4f} ms (GEMM alone {:.4f} ms), cuDNN "
+              "float32 {:.4f} ms, bf16 {:.4f} ms".format(label, batch, row["route_ms"], row["gemm_ms"],
+                                                        row["float32_ms"], row["bf16_ms"]))
+    total = {k: sum(r[k] for r in rows) for k in ("route_ms", "gemm_ms", "float32_ms", "bf16_ms")}
+    print("  {} distinct convolutions, each once at batch {}: route {:.3f} ms (GEMMs {:.3f} ms), cuDNN float32 "
+          "{:.3f} ms, bf16 {:.3f} ms".format(len(rows), batch, total["route_ms"], total["gemm_ms"],
+                                            total["float32_ms"], total["bf16_ms"]))
+    return rows, total
+
+
+def _int8_convs(model, float_levels, dim):
+    """Convolutions that run int8 in one forward with the finest
+    ``float_levels`` levels in float: one per quantization point the filter
+    keeps, two at a conv block's input with a residual 1x1."""
+    from deepfluoro_tpu_torch.infer.quantized import calibration_stats, make_level_filter
+
+    keep = make_level_filter(float_levels, len(model.down_path))
+    keys = calibration_stats(model, torch.zeros((1, 1, dim, dim), device=DEVICE))[1]
+    res = model.down_path[0].res_conv1x1 is not None
+    return sum(1 + (res and key.endswith("/x0") and not key.startswith("lands_block")) for key in keys
+               if keep is None or keep(key))
+
+
+def _to_cpu(members):
+    """The int8 members' state on the CPU: the same modules, int8 weights
+    and scales, so a CPU forward runs the plain convolutions on the card's
+    numbers."""
+    from deepfluoro_tpu_torch.infer.quantized import QuantizedMember
+
+    return [QuantizedMember(copy.deepcopy(m.model).cpu(), {k: (w.cpu(), s.cpu()) for k, (w, s) in m.qweights.items()},
+                            {k: v.cpu() for k, v in m.scales.items()}, {}) for m in members]
+
+
+def _int8_against_cpu(name, members, x_d, hw, num_lands):
+    """The int8 ensemble on the card against the same members, scales and
+    prepared input on the CPU: mean seg within 1e-3, heats within 1e-3,
+    labels differing on < 0.1 % of pixels and only where the CPU's top two
+    probabilities are closer than twice the seg difference. Returns the
+    card's labels."""
+    from deepfluoro_tpu_torch.infer.quantized import quantized_ensemble_forward
+
+    seg_d, heats_d, labels_d = (t.cpu() for t in quantized_ensemble_forward(members, x_d, hw, num_lands))
+    seg_c, heats_c, labels_c = quantized_ensemble_forward(_to_cpu(members), x_d.cpu(), hw, num_lands)
+    seg_err = float((seg_d - seg_c).abs().max())
+    heat_err = float((heats_d - heats_c).abs().max())
+    differ = (labels_d != labels_c).numpy()
+    top2 = torch.topk(seg_c, 2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    worst = float(margin[differ].max()) if differ.any() else 0.0
+    print("  {}: int8 card vs CPU on the same scales and input: mean seg max |diff| {:.2e} (<= 1e-3), heats {:.2e} "
+          "(<= 1e-3), labels differ on {:.4%} of pixels (< 0.1 %), largest CPU top-two margin there {:.2e} (<= twice "
+          "the seg difference)".format(name, seg_err, heat_err, differ.mean(), worst))
+    if not (torch.isfinite(seg_d).all() and torch.isfinite(heats_d).all()) or int(labels_d.max()) >= seg_d.shape[1]:
+        raise AssertionError("non-finite int8 outputs or labels out of range on " + name)
+    if seg_err > 1e-3 or heat_err > 1e-3 or differ.mean() >= 1e-3 or worst > 2 * seg_err:
+        raise AssertionError("card and CPU int8 ensembles disagree on " + name)
+    return labels_d
+
+
+def phase_int8(seed, member_paths, card):
+    """Post-training int8 inference on the card: (a) the int8 convolutions
+    against their plain version for every convolution shape of the 8x net,
+    and timed; (b) phase 5's K = 6 members through ``ensemble_batches(
+    quantized=True)``, card against CPU on the same scales, the labels
+    against the float ensemble's, frames/s at batch 64 for K = 6 and K = 1
+    (float, int8, int8, float in turns) and the peak less its baseline;
+    (c) the 8x full-res rung (K = 6, batch 8) with ``quantized=True``,
+    checked and timed; (d) no warp launch. Returns the int8 summary."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data, make_synthetic_fullres_data
+    from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
+    from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.infer.quantized import (
+        _quant_tensor, prepare_quantized_ensemble, quantize_weight, quantize_weights, quantized_ensemble_forward,
+    )
+    from deepfluoro_tpu_torch.ops import int8_conv, warp
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 9)
+    members = [load_net_from_checkpoint(p, device=DEVICE, verbose=False) for p in member_paths]
+    models, cfg = [m for m, _ in members], members[0][1]
+    hw, k_all = (INFER_FRAME, INFER_FRAME), len(models)
+    out = {}
+
+    # true division on the card: the scale is a device tensor, not a CPU scalar
+    xs = torch.randn((1 << 20,), generator=gen, device=DEVICE) * 3
+    scale = xs.abs().amax() / 127
+    w = models[0].down_path[-1].block[0].weight
+    if not (torch.equal(_quant_tensor(xs, scale).cpu(), _quant_tensor(xs.cpu(), scale.cpu()))
+            and all(torch.equal(a.cpu(), b) for a, b in zip(quantize_weight(w), quantize_weight(w.cpu())))):
+        raise AssertionError("activation or weight quantization differs between card and CPU")
+    print("  activation and weight quantization: card equal to CPU")
+
+    out["convs"], out["convs_total"] = _int8_conv_check(cfg, gen, THROUGHPUT_BATCH)
+
+    # (b) the K = 6 ensemble: card against CPU, against the float labels, and ensemble_batches
+    n_convs = len(quantize_weights(models[0]))
+    frames = make_synthetic_data(num_specimens=1, num_projs=INT8_CHECK_FRAMES, img_dim=INFER_FRAME, seed=seed + 6)
+    x_d = prepare_batch(AugmentConfig(proj_pad_dim=cfg.proj_unet_dim, prob_of_aug=0.0), None,
+                        torch.from_numpy(frames.projs).to(DEVICE))["proj"]
+    prepared = prepare_quantized_ensemble(models, [x_d])
+    labels = _int8_against_cpu("{} frames of {}^2, K = {}".format(INT8_CHECK_FRAMES, INFER_FRAME, k_all), prepared, x_d,
+                               hw, cfg.num_lands)
+    float_labels = ensemble_forward(models, x_d, hw, cfg.num_lands)[2].cpu()
+    out["int8_float_label_agreement"] = float((labels == float_labels).float().mean())
+    batched = np.concatenate([l for _, l, _ in ensemble_batches(frames, models, cfg.num_lands, None, INT8_CHECK_FRAMES,
+                                                                cfg.proj_unet_dim, quantized=True, calib_batches=1)])
+    print("  int8 labels equal the float ensemble's on {:.4%} of pixels; ensemble_batches(quantized=True) equals the "
+          "direct int8 forward: {}".format(out["int8_float_label_agreement"], bool(np.array_equal(batched, labels.numpy()))))
+    if not np.array_equal(batched, labels.numpy()):
+        raise AssertionError("ensemble_batches' int8 labels differ from the int8 forward's on the same scales")
+    del x_d, prepared
+
+    # (c) the 8x full-res rung, K = 6, batch 8
+    name, factor, pad, _, batch = FULLRES_RUNGS[0]
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=FULLRES_FRAMES, img_dim=FULLRES_DIM, seed=seed + 5)[0]
+    full_hw = spec["projs"].shape[1:]
+    prep, fhw = make_fullres_prep(factor, pad, full_hw)
+    nchk = FULLRES_CHECK_FRAMES
+    x_d = prep(torch.from_numpy(spec["projs"][:nchk]).to(DEVICE), torch.from_numpy(spec["rots"][:nchk]).to(DEVICE))
+    prepared = prepare_quantized_ensemble(models, [x_d])
+    labels = _int8_against_cpu("{} full-res rung, {} raw {}^2 frames -> {}^2, K = {}".format(
+        name, nchk, full_hw[0], fhw[0], k_all), prepared, x_d, fhw, cfg.num_lands)
+
+    def read_batch(i0, i1):
+        return spec["projs"][i0:i1], spec["rots"][i0:i1]
+
+    got = np.concatenate([l for _, l, _ in fullres_batches(read_batch, nchk, full_hw, models, factor, cfg.num_lands,
+                                                           None, batch, pad, quantized=True)])
+    if not np.array_equal(got, labels.numpy()):
+        raise AssertionError("fullres_batches' int8 labels differ from the int8 forward's on the same scales")
+    del x_d, prepared
+
+    # the timed runs, (b) then (c): the main path of this phase, with the counts at 0
+    warp.warp_launches = 0
+    int8_conv.int8_gemm_launches = 0
+    bulk = make_synthetic_data(num_specimens=1, num_projs=THROUGHPUT_FRAMES, img_dim=INFER_FRAME, seed=seed + 4)
+    forwards = 0
+    batches_per_run = THROUGHPUT_FRAMES // THROUGHPUT_BATCH + 1  # the warm-up batch, then the frames
+    for k in (k_all, 1):
+        for mode in ("float", "int8", "int8", "float"):
+            times = []
+            baseline = _peak_start()
+            for _ in ensemble_batches(bulk, models[:k], cfg.num_lands, times, THROUGHPUT_BATCH, cfg.proj_unet_dim,
+                                      quantized=mode == "int8"):
+                pass
+            fps = len(times) / sum(times)
+            out.setdefault("fps", {}).setdefault("K={} {}".format(k, mode), []).append(fps)
+            out.setdefault("peak", {})["K={} {}".format(k, mode)] = _peak_since(baseline)
+            forwards += k * batches_per_run if mode == "int8" else 0
+            print("  {} {} ensemble frames/s at batch {}, K = {}, {}^2 -> {}^2 (--times contract, calibration "
+                  "outside): {:.1f}; peak less baseline {} bytes".format(
+                      _card(card), mode, THROUGHPUT_BATCH, k, INFER_FRAME, cfg.proj_unet_dim, fps,
+                      out["peak"]["K={} {}".format(k, mode)]))
+    times = []
+    for _ in ensemble_batches(bulk, models, cfg.num_lands, times, THROUGHPUT_BATCH, cfg.proj_unet_dim, quantized=True,
+                              int8_float_levels=1):
+        pass
+    out["fps"]["K={} int8, finest level float".format(k_all)] = [len(times) / sum(times)]
+    forwards_hybrid = k_all * batches_per_run
+    print("  {} int8 with the finest level in float (--int8-float-levels 1), K = {}: {:.1f} frames/s".format(
+        _card(card), k_all, len(times) / sum(times)))
+    del bulk
+
+    for mode in ("float", "int8", "int8", "float"):
+        times = []
+        baseline = _peak_start()
+        for _ in fullres_batches(read_batch, len(spec["projs"]), full_hw, models, factor, cfg.num_lands, times, batch,
+                                 pad, quantized=mode == "int8"):
+            pass
+        fps = len(times) / sum(times)
+        key = "{} full-res {}".format(name, mode)
+        out["fps"].setdefault(key, []).append(fps)
+        out["peak"][key] = _peak_since(baseline)
+        forwards += k_all * (-(-len(times) // batch) + 1) if mode == "int8" else 0  # the warm-up batch, then the frames
+        print("  {} {} {} full-res rung: {:.2f} frames/s at batch {}, K = {}, over {} raw {}^2 frames (--times "
+              "contract); peak less baseline {} bytes".format(_card(card), mode, name, fps, batch, k_all,
+                                                              len(times), full_hw[0], out["peak"][key]))
+
+    _sync()
+    out["phase_peak"] = max(out["peak"][k] for k in out["peak"] if "int8" in k)
+    print("  {} the int8 runs' peak device memory less baseline, the largest over the phase: {} bytes (float: "
+          "{} bytes)".format(_card(card), out["phase_peak"], max(v for k, v in out["peak"].items() if "float" in k)))
+    out["gemm_launches"] = int8_conv.int8_gemm_launches
+    launches = warp.warp_launches
+    hybrid_int8 = _int8_convs(models[0], 1, cfg.proj_unet_dim)
+    expected = forwards * n_convs + forwards_hybrid * hybrid_int8
+    print("  int8 GEMM launches in the timed runs: {} ({} member forwards x {} convolutions, and {} with the finest "
+          "level in float x {} int8 convolutions = {}); warp kernel launches: {} (no kernel on this path)".format(
+              out["gemm_launches"], forwards, n_convs, forwards_hybrid, hybrid_int8, expected, launches))
+    if out["gemm_launches"] != expected:
+        raise AssertionError("the int8 runs did not take the int8 GEMM route for every convolution")
+    if launches != 0:
+        raise AssertionError("int8 inference launched the warp kernel")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic data, weights and draws")
@@ -1217,7 +1532,8 @@ def main(argv=None) -> int:
             ("6 resume and stream", lambda: phase_resume_and_stream(args.seed, workdir, results["1 environment"])),
             ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
             ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"], results["1 environment"])),
-            ("9 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("9 int8", lambda: phase_int8(args.seed, results["5 inference"], results["1 environment"])),
+            ("10 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -1238,6 +1554,9 @@ def main(argv=None) -> int:
         "ladder_1x_training": results["8 ladder"]["1x"],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
+    int8 = results["9 int8"]
+    print("int8 summary: " + json.dumps({k: int8[k] for k in ("fps", "peak", "phase_peak", "gemm_launches",
+                                                               "convs_total", "int8_float_label_agreement")}))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 
   python -m deepfluoro_tpu_torch.cli.seg_fullres ipcai_2020_full_res_data.h5 \\
     spec_17-1882_test.h5 --ds-factor 8 --nets yy_best_net.pt [more.pt ...] \\
-    [--pats 17-1882,18-1109] [--batch-size N] [--times times.txt] [--no-gpu]
+    [--pats 17-1882,18-1109] [--batch-size N] [--times times.txt] [--no-gpu] \\
+    [--int8 [--int8-float-levels N]] [--profile-dir DIR]
 
 The reference's test_ensemble.py reads preprocessed per-rung archives;
 this reads the raw full-res archive and preprocesses each batch on the
@@ -12,8 +13,10 @@ ensemble (``infer/fullres.py``). The output carries the ``nn-segs``/
 ``nn-heats``/``land-names`` contract of ``cli/test_ensemble.py``, so
 ``est_lands_csv`` and ``compute_actual_dice_on_test`` read it against a
 preprocessed archive of the same factor. Runs on CUDA with TF32 off;
-without a card it refuses unless given ``--no-gpu``. Not ported:
-``--int8``, ``--int8-float-levels`` and ``--profile-dir``.
+without a card it refuses unless given ``--no-gpu``. ``--int8`` runs the
+members' post-training int8 forwards, calibrated on the first batch of
+frames through the same prep; ``--profile-dir`` writes a
+``torch.profiler`` trace of the inference.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from deepfluoro_tpu_torch.infer.ensemble import load_net_from_checkpoint
 from deepfluoro_tpu_torch.infer.fullres import fullres_land_names, list_fullres_frames, seg_fullres_dataset
 from deepfluoro_tpu_torch.utils.io import write_floats_to_txt
 from deepfluoro_tpu_torch.utils.platform import get_device
+from deepfluoro_tpu_torch.utils.profiling import profile_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-gpu", help="run on the CPU", action="store_true")
     parser.add_argument("--times", help="write per-image inference seconds to this file", type=str, default="")
     parser.add_argument("--batch-size", help="frames per fused inference batch", type=int, default=4)
+    parser.add_argument("--int8", help="post-training int8 (w8a8) inference, scales calibrated on the first batch through the same prep", action="store_true")
+    parser.add_argument("--int8-float-levels", help="with --int8: keep the finest N U-Net levels in float", type=int, default=0)
+    parser.add_argument("--profile-dir", help="Write a torch.profiler trace (TensorBoard-loadable) to this directory", type=str, default="")
     return parser
 
 
@@ -79,10 +86,12 @@ def main(argv=None):
                         len(land_names), cfg.num_lands))
                 write_land_names(f, land_names)
         print("running fused preprocess + ensemble on raw frames")
-        seg_fullres_dataset(
-            src, specimens, models, f, ds_factor=args.ds_factor, num_lands=cfg.num_lands, times=times,
-            batch_size=args.batch_size, pad_img_dim=cfg.proj_unet_dim,
-        )
+        with profile_trace(args.profile_dir):
+            seg_fullres_dataset(
+                src, specimens, models, f, ds_factor=args.ds_factor, num_lands=cfg.num_lands, times=times,
+                batch_size=args.batch_size, pad_img_dim=cfg.proj_unet_dim, quantized=args.int8,
+                int8_float_levels=args.int8_float_levels,
+            )
         f.flush()
 
     if args.times:

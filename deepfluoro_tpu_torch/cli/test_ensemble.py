@@ -4,13 +4,17 @@ test_ensemble.py:20-148):
 
   python -m deepfluoro_tpu_torch.cli.test_ensemble ipcai_2020_ds_8x.h5 \\
     spec_1_test.h5 --pats 1 --nets yy_best_net.pt [more.pt ...] \\
-    [--times times.txt] [--no-gpu] [--batch-size N]
+    [--times times.txt] [--no-gpu] [--batch-size N] [--int8
+    [--int8-calib-batches N] [--int8-float-levels N]] [--profile-dir DIR]
 
 Writes ``nn-segs`` (u1, gzip 9), ``nn-heats`` and the ``land-names`` group
 to the output HDF5, and optionally one line of seconds per image. Runs on
 CUDA with TF32 off (the recipe is float32); without a card it refuses
-unless given ``--no-gpu``. Not ported: ``--ensemble-devices``,
-``--dp-devices``, ``--int8*`` and ``--profile-dir``.
+unless given ``--no-gpu``. ``--int8`` runs the members' post-training
+int8 forwards (``infer/quantized.py``), calibrated on the first
+``--int8-calib-batches`` batches of the input; ``--profile-dir`` writes a
+``torch.profiler`` trace of the inference. Not ported:
+``--ensemble-devices`` and ``--dp-devices``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from deepfluoro_tpu_torch.data.hdf5 import get_land_names_from_dataset, load_dat
 from deepfluoro_tpu_torch.infer.ensemble import load_net_from_checkpoint, seg_dataset_ensemble
 from deepfluoro_tpu_torch.utils.io import write_floats_to_txt
 from deepfluoro_tpu_torch.utils.platform import get_device
+from deepfluoro_tpu_torch.utils.profiling import profile_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-gpu", help="run on the CPU", action="store_true")
     parser.add_argument("--times", help="write per-image inference seconds to this file", type=str, default="")
     parser.add_argument("--batch-size", help="Images per inference batch (1 matches the reference's timing granularity)", type=int, default=1)
+    parser.add_argument("--profile-dir", help="Write a torch.profiler trace (TensorBoard-loadable) to this directory", type=str, default="")
+    parser.add_argument("--int8", help="post-training int8 quantized inference: every conv runs s8 x s8 -> s32 on the int8 tensor cores with activation scales calibrated on the first batches of the input data (framework extension; the reference infers in float32)", action="store_true")
+    parser.add_argument("--int8-calib-batches", help="number of leading input batches used to calibrate the int8 activation scales", type=int, default=4)
+    parser.add_argument("--int8-float-levels", help="hybrid mode: keep the finest N U-Net levels in float and quantize only the deeper levels", type=int, default=0)
     return parser
 
 
@@ -80,10 +89,12 @@ def main(argv=None):
         if land_names:
             write_land_names(f, land_names)
         print("running network on projections")
-        seg_dataset_ensemble(
-            test_data, models, f, num_lands=cfg.num_lands, times=times, batch_size=args.batch_size,
-            pad_img_dim=cfg.proj_unet_dim, num_classes=cfg.num_classes,
-        )
+        with profile_trace(args.profile_dir):
+            seg_dataset_ensemble(
+                test_data, models, f, num_lands=cfg.num_lands, times=times, batch_size=args.batch_size,
+                pad_img_dim=cfg.proj_unet_dim, num_classes=cfg.num_classes, quantized=args.int8,
+                calib_batches=args.int8_calib_batches, int8_float_levels=args.int8_float_levels,
+            )
         print("closing file...")
 
     if args.times:

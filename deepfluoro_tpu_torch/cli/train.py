@@ -13,8 +13,10 @@ the flags of the IPCAI paper recipe (reference train_test_code/Readme.md:
 
 An existing ``--checkpoint-net`` file resumes the run. Runs on CUDA;
 without a card it refuses unless given ``--no-gpu``. The ladder's big
-rungs train with ``--bf16 --remat --stream-data``. Not ported: the mesh
-and process flags, ``--profile-dir`` and ``--debug-nans``.
+rungs train with ``--bf16 --remat --stream-data``. ``--profile-dir``
+writes a ``torch.profiler`` trace of the run; ``--debug-nans`` turns on
+autograd's anomaly mode, which raises at the backward op that first
+makes a NaN. Not ported: the mesh and process flags.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import argparse
 from deepfluoro_tpu_torch.data.hdf5 import get_num_lands_from_dataset
 from deepfluoro_tpu_torch.train.config import TrainConfig
 from deepfluoro_tpu_torch.train.loop import fit
+from deepfluoro_tpu_torch.utils.profiling import enable_nan_debugging, profile_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,6 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", help="Rematerialize activations per U-Net block during backprop: fits large-resolution frames / bigger batches in device memory for ~1 extra forward of compute; results equal up to float reassociation", action="store_true")
     p.add_argument("--dup-lr-flip", help="duplicate every training sample with a left/right mirror (flipped projections, bilateral seg labels and landmark pairs swapped); mirrors join after the train/valid split", action="store_true")
     p.add_argument("--seed", help="random seed", type=int, default=0)
+    p.add_argument("--profile-dir", help="Write a torch.profiler trace (TensorBoard-loadable) to this directory", type=str, default="")
+    p.add_argument("--debug-nans", help="Fault on the first NaN-producing backward op (torch.autograd.set_detect_anomaly)", action="store_true")
     return p
 
 
@@ -130,18 +135,21 @@ def main(argv=None):
         compute_dtype="bfloat16" if args.bf16 else "float32",
         remat=args.remat,
     )
-    fit(
-        args.input_data_file_path,
-        train_pats,
-        cfg,
-        valid_pats=valid_pats,
-        checkpoint_filename=args.checkpoint_net,
-        best_valid_filename=args.best_net,
-        train_loss_txt=args.train_loss_txt,
-        valid_loss_txt=args.valid_loss_txt,
-        stream_data=args.stream_data,
-        device="cpu" if args.no_gpu else "cuda",
-    )
+    if args.debug_nans:
+        enable_nan_debugging()
+    with profile_trace(args.profile_dir):
+        fit(
+            args.input_data_file_path,
+            train_pats,
+            cfg,
+            valid_pats=valid_pats,
+            checkpoint_filename=args.checkpoint_net,
+            best_valid_filename=args.best_net,
+            train_loss_txt=args.train_loss_txt,
+            valid_loss_txt=args.valid_loss_txt,
+            stream_data=args.stream_data,
+            device="cpu" if args.no_gpu else "cuda",
+        )
 
 
 if __name__ == "__main__":

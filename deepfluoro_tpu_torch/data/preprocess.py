@@ -22,7 +22,8 @@ Both resizes repeat ``jax.image.resize``:
   factor does not divide the size.
 
 Everything runs on the tensors' device; ``make_fused_fullres_infer`` folds
-the chain into one eager function in front of a U-Net. Full-res archive
+the chain into one eager function in front of a U-Net, and
+``make_quantized_fullres_infer`` in front of its int8 forward. Full-res archive
 schema: hdf5_layouts/Readme.md:16-93.
 """
 
@@ -263,20 +264,43 @@ def make_fullres_prep(ds_factor: int, pad_dim: int, full_hw):
     return prep, (hc, wc)
 
 
-def make_fused_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw):
+def make_fused_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, apply_fn=None):
     """Full-res frames -> prep -> ``model`` (eval mode, on the frames'
     device) -> crop to the frame -> argmax.
 
     Returns ``infer(projs (B, H_full, W_full), rot_flags (B,)) -> (labels
     (B, h, w) uint8, heats (B, L, h, w) float32 or None)``; heats are the
-    net's raw maps, as the JAX program returns them."""
+    net's raw maps, as the JAX program returns them. ``apply_fn(x) -> seg
+    | (seg, heats)`` replaces the float forward ``model(x)``;
+    ``make_quantized_fullres_infer`` passes the int8 forward through it."""
     prep, (hc, wc) = make_fullres_prep(ds_factor, pad_dim, full_hw)
+    if apply_fn is None:
+        apply_fn = model
 
     @torch.no_grad()
     def infer(projs: torch.Tensor, rot_flags: torch.Tensor):
-        out = model(prep(projs, rot_flags))
+        out = apply_fn(prep(projs, rot_flags))
         seg, heats = out if isinstance(out, tuple) else (out, None)
         labels = center_crop(seg, (hc, wc)).argmax(dim=1).to(torch.uint8)
         return labels, None if heats is None else center_crop(heats, (hc, wc))
 
     return infer
+
+
+def make_quantized_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, calib_projs, calib_rot_flags,
+                                 float_levels: int = 0):
+    """The int8 variant of ``make_fused_fullres_infer``: activation scales
+    calibrated on ``calib_projs`` ((B, H_full, W_full) raw frames, B >= 1,
+    on the model's device) and ``calib_rot_flags`` run through the same
+    prep, weights quantized per output channel (the JAX docstring says per
+    tensor; its code, like this, quantizes per channel), and the U-Net's
+    convolutions int8 (``infer/quantized.py``), the finest
+    ``float_levels`` levels in float. Same return contract."""
+    from deepfluoro_tpu_torch.infer.quantized import int8_forwards
+
+    if calib_projs.ndim != 3 or calib_projs.shape[0] < 1:
+        raise ValueError("int8 calibration needs at least one (B, H, W) raw frame; got shape {}".format(
+            tuple(calib_projs.shape)))
+    prep, _ = make_fullres_prep(ds_factor, pad_dim, full_hw)
+    (apply_fn,) = int8_forwards([model], [prep(calib_projs, calib_rot_flags)], float_levels)
+    return make_fused_fullres_infer(model, ds_factor, pad_dim, full_hw, apply_fn=apply_fn)

@@ -16,8 +16,12 @@ device work is a generator of host batches (``ensemble_batches``), so it
 runs where h5py is not installed; ``write_ensemble_outputs`` consumes it
 into the file.
 
-Not ported: the ``mesh``, ``quantized``, ``calib_batches`` and
-``int8_float_levels`` arguments, and loading the JAX package's msgpack
+``quantized`` runs the members' int8 forwards instead
+(``infer/quantized.py``), with activation scales calibrated on the first
+``calib_batches`` prepared batches of the same unshuffled iterator, and
+the finest ``int8_float_levels`` U-Net levels left in float.
+
+Not ported: the ``mesh`` argument and loading the JAX package's msgpack
 checkpoints.
 """
 
@@ -103,7 +107,8 @@ def postprocess_net_output(out, orig_hw, num_lands: int):
 
 def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
     """The mean over members of ``post(model(proj), orig_hw, num_lands)``:
-    (seg, heats or None), one plain forward per member."""
+    (seg, heats or None), one forward per member; a member is a module or
+    any callable of ``proj`` (``infer/quantized.py::member_forwards``)."""
     seg_sum = heat_sum = None
     for model in models:
         seg, heats = post(model(proj), orig_hw, num_lands)
@@ -118,14 +123,40 @@ def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
 def ensemble_forward(models, proj: torch.Tensor, orig_hw, num_lands: int):
     """(prepared ``proj`` (B, 1, Hp, Wp)) -> (mean softmax seg (B, C, H, W),
     mean normalized heats (B, L, H, W) or None, argmax labels (B, H, W)
-    uint8). K plain forwards, one per member; the members must be in eval
-    mode (``load_net_from_checkpoint`` returns them so)."""
+    uint8). K forwards, one per member; the members must be in eval mode
+    (``load_net_from_checkpoint`` returns them so) or be callables, as the
+    int8 members of ``infer/quantized.py``."""
     avg_seg, avg_heats = _member_mean(models, proj, orig_hw, num_lands, postprocess_net_output)
     return avg_seg, avg_heats, avg_seg.argmax(dim=1).to(torch.uint8)
 
 
 def _device_of(models) -> torch.device:
     return next(models[0].parameters()).device
+
+
+def _calibration_inputs(it, prep, calib_batches: int):
+    """The first ``calib_batches`` prepared batches of ``it``'s unshuffled
+    epoch (JAX: the same iterator as the inference pass)."""
+    if calib_batches < 1:
+        raise ValueError("--int8 needs at least one calibration batch (got --int8-calib-batches {})".format(calib_batches))
+    calib = []
+    for projs, _, _ in it.epoch():
+        calib.append(prep(projs))
+        if len(calib) >= calib_batches:
+            break
+    if not calib:
+        raise ValueError("cannot calibrate int8 activation scales on an empty dataset")
+    return calib
+
+
+def _member_forwards(models, it, prep, quantized: bool, calib_batches: int, int8_float_levels: int):
+    """The members' forwards: the models themselves, or with ``quantized``
+    their int8 forwards, calibrated here on ``it``'s first batches."""
+    if not quantized:
+        return models
+    from deepfluoro_tpu_torch.infer.quantized import int8_forwards
+
+    return int8_forwards(models, _calibration_inputs(it, prep, calib_batches), int8_float_levels)
 
 
 def ensemble_batches(
@@ -136,6 +167,9 @@ def ensemble_batches(
     batch_size: int = 1,
     pad_img_dim: int = 0,
     num_classes: int = 7,
+    quantized: bool = False,
+    calib_batches: int = 4,
+    int8_float_levels: int = 0,
 ):
     """Yield ``(start, labels (b, H, W) uint8, heats (b, L, H, W) float32 or
     None)`` numpy batches over ``data`` in order, the final partial batch
@@ -145,14 +179,16 @@ def ensemble_batches(
     batch size: pad, z-norm, the K forwards and the mean, up to a
     synchronise inside the timed region; the readback falls outside. Every
     batch shape, the final partial one too, runs once before timing, so
-    no first-call cost lands in it."""
+    no first-call cost lands in it. With ``quantized`` the forwards are
+    int8, calibrated before the warm-up on the first ``calib_batches``
+    batches (ValueError for fewer than 1, or for an empty dataset)."""
     dev = _device_of(models)
     orig_hw = data.orig_img_shape
     n = len(data)
     aug_cfg = AugmentConfig(num_classes=num_classes, proj_pad_dim=pad_img_dim, prob_of_aug=0.0, include_heat_map=False)
 
-    def run(projs):
-        return ensemble_forward(models, prepare_batch(aug_cfg, None, projs)["proj"], orig_hw, num_lands)
+    def prep(projs):
+        return prepare_batch(aug_cfg, None, projs)["proj"]
 
     def sync():
         if dev.type == "cuda":
@@ -161,6 +197,11 @@ def ensemble_batches(
     for model in models:
         model.eval()
     it = BatchIterator(data, batch_size=batch_size, device=dev)
+    fwds = _member_forwards(models, it, prep, quantized, calib_batches, int8_float_levels)
+
+    def run(projs):
+        return ensemble_forward(fwds, prep(projs), orig_hw, num_lands)
+
     for warm_b in {min(batch_size, n), n % batch_size} - {0}:
         run(it.projs[:warm_b])
     sync()
@@ -210,12 +251,17 @@ def seg_dataset_ensemble(
     batch_size: int = 1,
     pad_img_dim: int = 0,
     num_classes: int = 7,
+    quantized: bool = False,
+    calib_batches: int = 4,
+    int8_float_levels: int = 0,
 ) -> None:
     """Run the ensemble over ``data`` and write ``nn-segs``/``nn-heats``
     into the open h5py file ``h5_f`` (reference util.py:293-377).
     ``models``: the members from ``load_net_from_checkpoint``, all of one
-    architecture and on one device."""
-    batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes)
+    architecture and on one device; ``quantized`` and the rest as
+    ``ensemble_batches``."""
+    batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes, quantized,
+                               calib_batches, int8_float_levels)
     write_ensemble_outputs(h5_f, batches, len(data), data.orig_img_shape, num_lands)
 
 
@@ -227,6 +273,9 @@ def seg_dataset(
     batch_size: int = 1,
     pad_img_dim: int = 0,
     num_classes: int = 7,
+    quantized: bool = False,
+    calib_batches: int = 4,
+    int8_float_levels: int = 0,
 ) -> None:
     """One network as an ensemble of one (reference util.py:243-291). The
     reference's single-net path does not min-max normalize the heatmaps;
@@ -234,7 +283,8 @@ def seg_dataset(
     decoding is unchanged)."""
     seg_dataset_ensemble(
         data, [model], h5_f, num_lands=num_lands, batch_size=batch_size, pad_img_dim=pad_img_dim,
-        num_classes=num_classes,
+        num_classes=num_classes, quantized=quantized, calib_batches=calib_batches,
+        int8_float_levels=int8_float_levels,
     )
 
 
@@ -248,12 +298,16 @@ def test_dataset_ensemble(
     pad_img_dim: int = 0,
     num_classes: int = 7,
     heat_coeff: float = 0.5,
+    quantized: bool = False,
+    calib_batches: int = 4,
+    int8_float_levels: int = 0,
 ):
     """Ensemble validation loss (reference util.py:167-241): the mean over
     members of each image's seg and heatmaps, then the per-image joint loss
     (or the dice term alone) -> (mean, std with N-1) over the images.
     As in the reference, this path does not min-max normalize the members'
-    heatmaps (util.py:216-222)."""
+    heatmaps (util.py:216-222). ``quantized`` and the rest as
+    ``ensemble_batches`` (the JAX package has no int8 loss evaluation)."""
     dev = _device_of(models)
     orig_hw = data.orig_img_shape
     use_lands = num_lands > 0 and not dice_only
@@ -261,10 +315,12 @@ def test_dataset_ensemble(
     for model in models:
         model.eval()
     it = BatchIterator(data, batch_size=batch_size, device=dev)
+    fwds = _member_forwards(models, it, lambda projs: prepare_batch(aug_cfg, None, projs)["proj"],
+                            quantized, calib_batches, int8_float_levels)
     losses = []
     for projs, segs, lands in it.epoch():
         prepared = prepare_batch(aug_cfg, None, projs, segs, lands)
-        avg_seg, avg_heats = _member_mean(models, prepared["proj"], orig_hw, num_lands, _crop_output)
+        avg_seg, avg_heats = _member_mean(fwds, prepared["proj"], orig_hw, num_lands, _crop_output)
         if use_lands:
             losses.append(per_sample_joint(avg_seg, avg_heats, prepared["seg"], prepared["heats"], heat_coeff))
         else:

@@ -16,9 +16,11 @@ writes the output through ``write_ensemble_outputs``: ``nn-segs`` (N, h,
 w) u1 gzip 9 and ``nn-heats`` (N, L, h, w), in (specimen, projection-key)
 order and in the preprocessed orientation, so ``est_lands_csv`` and
 ``compute_actual_dice_on_test`` read them against a preprocessed archive
-of the same factor.
+of the same factor. ``quantized`` runs the members' int8 forwards
+(``infer/quantized.py``), calibrated on the first batch of frames run
+through the same prep.
 
-Not ported: ``quantized`` (int8) and the JAX module's meshes.
+Not ported: the JAX module's meshes.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ def fullres_batches(
     times: list | None = None,
     batch_size: int = 4,
     pad_img_dim: int = 0,
+    quantized: bool = False,
+    int8_float_levels: int = 0,
 ):
     """A generator of ``(start, labels (b, h, w) uint8, heats (b, L, h, w)
     float32 or None)`` numpy batches of the ensemble over ``n`` raw frames,
@@ -83,7 +87,12 @@ def fullres_batches(
     batch's wall-clock over the real frames: the copy to the device, prep,
     K forwards, mean and argmax, up to a synchronise; the readback falls
     outside. Raises ValueError at once when the nets' ``pad_img_dim`` is
-    below the frame size at ``ds_factor`` (nets of another rung)."""
+    below the frame size at ``ds_factor`` (nets of another rung).
+
+    With ``quantized`` the forwards are int8 (the finest
+    ``int8_float_levels`` levels in float), with activation scales
+    calibrated here, before the generator starts, on the first
+    ``min(batch_size, n)`` frames through the same prep."""
     if n == 0:
         raise ValueError("no projections selected")
     hc = fullres_crop_size(ds_factor, full_hw)[0]
@@ -93,21 +102,28 @@ def fullres_batches(
             "for a different downsample factor".format(pad_img_dim, ds_factor, hc)
         )
     prep, orig_hw = make_fullres_prep(ds_factor, pad_img_dim, full_hw)
-    return _batches(read_batch, n, tuple(full_hw), models, prep, orig_hw, num_lands, times, min(batch_size, n))
-
-
-def _batches(read_batch, n, full_hw, models, prep, orig_hw, num_lands, times, batch_size):
+    batch_size = min(batch_size, n)
     dev = next(models[0].parameters()).device
+    for model in models:
+        model.eval()
+    fwds = models
+    if quantized:
+        from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
+        projs, rots = read_batch(0, batch_size)
+        fwds = int8_forwards(models, [prep(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))],
+                             int8_float_levels)
+    return _batches(read_batch, n, tuple(full_hw), fwds, dev, prep, orig_hw, num_lands, times, batch_size)
+
+
+def _batches(read_batch, n, full_hw, fwds, dev, prep, orig_hw, num_lands, times, batch_size):
     def run(projs, rots):
-        return ensemble_forward(models, prep(projs, rots), orig_hw, num_lands)
+        return ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    for model in models:
-        model.eval()
     run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
     sync()
 
@@ -139,14 +155,14 @@ def seg_fullres_dataset(
     batch_size: int = 4,
     pad_img_dim: int = 0,
     quantized: bool = False,
+    int8_float_levels: int = 0,
 ):
     """Run the ensemble over the raw frames of the open full-res archive
     ``src`` (``specimens``: group names, None for all) and write
     ``nn-segs``/``nn-heats`` into the open h5py file ``h5_f``. ``models``
-    are members from ``load_net_from_checkpoint``. Returns the (specimen,
+    are members from ``load_net_from_checkpoint``; ``quantized`` and
+    ``int8_float_levels`` as ``fullres_batches``. Returns the (specimen,
     projection-key) entries in output order."""
-    if quantized:
-        raise NotImplementedError("int8 full-res inference is not ported yet (ROADMAP §1 item 6)")
     entries = list_fullres_frames(src, specimens)
     if not entries:
         raise ValueError("no projections selected")
@@ -163,6 +179,6 @@ def seg_fullres_dataset(
         return projs, rots
 
     batches = fullres_batches(read_batch, len(entries), full_hw, models, ds_factor, num_lands, times, batch_size,
-                              pad_img_dim)
+                              pad_img_dim, quantized, int8_float_levels)
     write_ensemble_outputs(h5_f, batches, len(entries), fullres_crop_size(ds_factor, full_hw), num_lands)
     return entries

@@ -149,15 +149,17 @@ def test_fullres_batches_pad_the_final_batch_and_time_real_frames(nets):
 
 def test_wrong_rung_int8_and_missing_card_are_refused(tmp_path, archive, nets):
     """Nets padded to 36^2 cannot serve the 1x rung (48^2 frames): both CLIs
-    refuse; int8 is not ported; without a card the port's CLI refuses
+    refuse, with and without --int8 (int8 itself is held against JAX in
+    test_torch_port_quantized.py); without a card the port's CLI refuses
     unless given --no-gpu."""
     for cli in (jax_cli, port_cli):
-        with pytest.raises(ValueError, match="different downsample factor"):
-            cli.main([archive, str(tmp_path / "o.h5"), "--ds-factor", "1", "--nets", *nets[2], "--no-gpu"])
+        for extra in ([], ["--int8"]):
+            with pytest.raises(ValueError, match="different downsample factor"):
+                cli.main([archive, str(tmp_path / "o.h5"), "--ds-factor", "1", "--nets", *nets[2], "--no-gpu", *extra])
     models = [load_net_from_checkpoint(nets[2][0], device="cpu", verbose=False)[0]]
     with h5py.File(archive, "r") as src, h5py.File(str(tmp_path / "q.h5"), "w") as f:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tfull.seg_fullres_dataset(src, None, models, f, 2, 14, pad_img_dim=36, quantized=True)
+        with pytest.raises(ValueError, match="different downsample factor"):
+            tfull.seg_fullres_dataset(src, None, models, f, 1, 14, pad_img_dim=36, quantized=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_cli.main([archive, str(tmp_path / "c.h5"), "--ds-factor", "2", "--nets", *nets[2]])

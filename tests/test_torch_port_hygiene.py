@@ -78,6 +78,9 @@ INFER_EVAL_MODULES = [
     "deepfluoro_tpu_torch.infer.fullres",
     "deepfluoro_tpu_torch.cli.seg_fullres",
     "deepfluoro_tpu_torch.cli.preprocess_full_res",
+    "deepfluoro_tpu_torch.infer.quantized",
+    "deepfluoro_tpu_torch.ops.int8_conv",
+    "deepfluoro_tpu_torch.utils.profiling",
 ]
 
 
