@@ -89,17 +89,47 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      6, batch 8) int8, checked the same way and timed in turns; (d) one
      int8 GEMM per convolution of every timed int8 forward, no warp
      launch;
- 10. profiler: ``torch.profiler``'s device time of the pair at each
+ 10. distributed (``torch.distributed``; one card, so this shows
+     correctness and per-rank launches, not scaling; deterministic cuDNN
+     in every process): (a) NCCL with one rank: ``fit`` on a {'data': 1}
+     mesh, phase 4's recipe for 2 epochs, against the one-process ``fit``
+     from the same seed, per-step and validation losses within 1e-5
+     relative, one warp launch per step; (b) gloo with two ranks on
+     ``cuda:0`` (NCCL refuses two ranks on one card): data-parallel
+     ``fit`` at global batch 10 (5 per rank), augmentation on, 2 epochs,
+     against one process at batch 10: the first epoch's losses within
+     1e-4 relative, both epochs' within 1e-3 (the recipe's trajectory
+     amplifies a change in the order of sums: one process against itself
+     with cuDNN's non-deterministic algorithms differed by 4.5e-5 to
+     1.4e-4 on an H100; the per-step differences are printed),
+     BatchNorm buffers equal across ranks, one warp launch per step per
+     rank, and each
+     rank's warp pair at 5 frames against its plain version (phase 3's
+     tolerances); (c) gloo, two ranks: ``fit_multifold`` with K = 6
+     split 3 + 3 for 1 epoch, augmentation on (each rank draws one
+     process's augmentation and keeps its folds' rows), every fold's
+     losses within 1e-3 relative of one process, one warp launch per
+     lockstep step per rank; (d) gloo, two ranks: phase 5's K = 6
+     members split 3 + 3, and the rows of each batch split 2 + 2, float
+     and int8 (on phase 9's scales), against one process: mean seg and
+     heats within 1e-5, labels equal except where the one-process top two
+     are closer than twice the seg difference, ``ensemble_batches``'
+     heats within 1e-5 and labels differing on < 0.1 %. Steps/s per rank
+     are of two ranks sharing one card; each run's peak less baseline per
+     rank. The ranks start while this process runs the one-process
+     references, and wait for a go file;
+ 11. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
-line. On success a line ``int8 summary: {...}`` carries phase 9's rates,
-peaks and GEMM launches; the line before the last is a JSON object
-describing the
-kernel (with its times at every geometry and its launches on each path:
-training, resume and stream, folds, 2x and 1x ladder training), and the
-last line is
+line; a rank that fails makes its phase raise. On success a line ``int8
+summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
+line ``distributed summary: {...}`` phase 10's; the line before the last
+is a JSON object describing the kernel (with its times at every geometry
+and its launches on each path: training, resume and stream, folds, 2x
+and 1x ladder training, data-parallel training and fold-sharded
+training, the last two counted by the ranks), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1512,6 +1542,354 @@ def phase_int8(seed, member_paths, card):
     return out
 
 
+DIST_BATCH = 10  # phase 10(b)'s global batch: 5 frames per rank, as the recipe's batch on one card
+DIST_LAYOUTS = {"members 3+3": {"ensemble": 2}, "rows": {"ensemble": 1, "data": 2}}
+
+
+# the settings a phase-10 rank takes from the parent (a rank imports this
+# file afresh): its device, and the sizes, which a CPU rehearsal shrinks
+RANK_SETTINGS = ("DEVICE", "TRAIN_FRAME", "TRAIN_PAD", "TRAIN_DEPTH", "TRAIN_WF", "FOLD_PATS", "CHECK_FRAMES",
+                 "INFER_FRAME", "INT8_CHECK_FRAMES", "DIST_BATCH")
+
+
+def _count_plain_pairs():
+    """A CPU rehearsal's ranks: CPU tensors take the plain warp and launch
+    no kernel, so the pair's calls are counted in its count instead."""
+    from deepfluoro_tpu_torch.ops import warp
+
+    pair = warp.affine_warp_pair
+    if getattr(pair, "counted", False):
+        return
+
+    def counted(*args, **kwargs):
+        warp.warp_launches += 1
+        return pair(*args, **kwargs)
+
+    counted.counted = True
+    warp.affine_warp_pair = counted
+
+
+def _rank_setup(deterministic, settings=None):
+    """A phase-10 rank starts from a fresh import: the parent's
+    ``RANK_SETTINGS``, the float32 recipe's switches, set as phase 1 sets
+    them, and deterministic cuDNN so that runs compare step for step."""
+    globals().update(settings or {})
+    if DEVICE == "cpu":
+        _count_plain_pairs()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic
+
+
+def _await_go(go_file):
+    """A rank that has imported the port, made its CUDA context and loaded
+    the kernel waits here until the parent creates ``go_file``: the ranks
+    start while the parent computes its references, and run after."""
+    torch.zeros(1, device=DEVICE)
+    if DEVICE == "cuda":
+        from deepfluoro_tpu_torch.ops._build import load_library
+
+        load_library("affine_warp")
+    deadline = time.monotonic() + 900
+    while not os.path.exists(go_file):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go from the parent within 900 s")
+        time.sleep(0.05)
+
+
+def _warp_pair_err(seed, b):
+    """The warp pair of one rank's share of a step (``b`` frames of 180^2 ->
+    192^2 under the augmentation's matrices) against its plain version, at
+    phase 3's tolerances; returns the bilinear max |diff|."""
+    from deepfluoro_tpu_torch.ops import image, warp
+    from deepfluoro_tpu_torch.ops.image import calc_pad_amount
+
+    extra = calc_pad_amount(TRAIN_PAD, TRAIN_FRAME)
+    oshape, off = (TRAIN_FRAME + 2 * extra,) * 2, (-extra, -extra)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    proj = torch.rand((b, TRAIN_FRAME, TRAIN_FRAME), generator=gen, device=DEVICE)
+    labels = torch.randint(0, 7, (b, TRAIN_FRAME, TRAIN_FRAME), generator=gen, device=DEVICE).float()
+    m = _aug_matrices(gen, b, TRAIN_FRAME).to(DEVICE)
+    got = warp.affine_warp_pair(proj, labels, m, oshape, off)
+    want = image.affine_warp(proj, m, 1, oshape, off), image.affine_warp(labels, m, 0)
+    _sync()
+    name = "rank {} warp pair, {} frames {}->{}".format(torch.distributed.get_rank(), b, TRAIN_FRAME, oshape[0])
+    err = _compare(name + " projection bilinear", got[0], want[0], 1)
+    _compare(name + " labels nearest", got[1], want[1], 0)
+    return err
+
+
+def _rank_fit(seed, workdir, batch_size, epochs):
+    """One rank of a data-parallel ``fit`` of the 8x recipe over a 'data'
+    mesh of every rank (process 0 writes the files)."""
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.parallel import make_mesh
+    from deepfluoro_tpu_torch.train import fit
+
+    data = _smoke_data(seed)
+    mesh = make_mesh({"data": torch.distributed.get_world_size()})
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    out = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=epochs, batch_size=batch_size),
+              verbose=False, device=DEVICE, mesh=mesh, **_fit_files(workdir, "dp{}".format(batch_size)))
+    _sync()
+    bn = {k: v.cpu().numpy() for k, v in out["model"].state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    return {"train": out["train_losses"], "valid": out["valid_losses"], "steps": len(out["train_losses"]),
+            "launches": warp.warp_launches, "step_seconds": out["step_seconds"], "peak": _peak_since(baseline),
+            "bn": bn}
+
+
+def _rank_nccl(seed, workdir, settings, go_file):
+    """Phase 10(a): one rank of the backend that ``run_ranks`` picks by
+    default, NCCL on the card (gloo in a CPU rehearsal). Its collectives
+    run (a sum and the agreement helpers on a device tensor), then the
+    data-parallel ``fit``."""
+    from deepfluoro_tpu_torch.parallel.sharding import barrier, sum_over
+
+    _rank_setup(True, settings)
+    t = torch.ones(3, device=DEVICE)
+    torch.distributed.all_reduce(t)
+    barrier()
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if torch.distributed.get_backend() != backend or t.tolist() != [1.0] * 3 or sum_over([2.5]) != [2.5]:
+        raise AssertionError("the {} group of one rank did not reduce".format(backend))
+    _await_go(go_file)
+    return _rank_fit(seed, workdir, 5, 2)
+
+
+def _rank_gloo(seed, workdir, member_paths, settings, go_file):
+    """Phase 10(b)-(d) on one of two gloo ranks sharing the card."""
+    from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.quantized import int8_forwards
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.parallel import make_mesh
+    from deepfluoro_tpu_torch.train.multifold import fit_multifold
+
+    _rank_setup(True, settings)
+    _await_go(go_file)
+    out = {"b": _rank_fit(seed, workdir, DIST_BATCH, 2)}
+    out["b"]["warp_err"] = _warp_pair_err(seed + 11 + torch.distributed.get_rank(), DIST_BATCH // 2)
+
+    data = _smoke_data(seed)
+    cfg = _recipe_cfg(data, seed, max_num_epochs=1)
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    folds = fit_multifold(data, FOLD_PATS, cfg, verbose=False, device=DEVICE, mesh=make_mesh({"ensemble": 2}),
+                          checkpoint_prefix=os.path.join(workdir, "dfold_ck"),
+                          best_prefix=os.path.join(workdir, "dfold_best"))
+    _sync()
+    out["c"] = {"train": np.array(folds["train_losses"]), "valid": np.array(folds["valid_losses"]),
+                "folds": folds["folds"], "launches": warp.warp_launches, "steps": len(folds["train_losses"]),
+                "step_seconds": folds["step_seconds"], "peak": _peak_since(baseline)}
+    del folds
+
+    frames, x, x9 = _dist_inputs(seed)
+    out["d"] = {}
+    for name, axes in DIST_LAYOUTS.items():
+        mesh = make_mesh(axes)
+        own = member_paths[mesh.axis("ensemble").rows(len(member_paths))]
+        models = [load_net_from_checkpoint(p, device=DEVICE, verbose=False)[0] for p in own]
+        num_lands, pad = models[0].num_lands, x.shape[-1]
+        for mode in ("float", "int8"):
+            baseline = _peak_start()
+            fwds = int8_forwards(models, [x9]) if mode == "int8" else models
+            res = [t.cpu().numpy() for t in ensemble_forward(fwds, x9 if mode == "int8" else x, frames.orig_img_shape,
+                                                               num_lands, mesh)]
+            batched = [(l, h) for _, l, h in ensemble_batches(frames, models, num_lands, None, 4, pad,
+                                                               quantized=mode == "int8", calib_batches=1, mesh=mesh)]
+            out["d"][name, mode] = {"forward": res, "batches": batched, "peak": _peak_since(baseline)}
+        del models
+    return out
+
+
+def _dist_inputs(seed):
+    """Phase 10(d)'s inputs: phase 5's check frames, their first 4 prepared
+    (float), and phase 9's prepared check frames (int8, whose scales they
+    set)."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+
+    aug = AugmentConfig(proj_pad_dim=TRAIN_PAD, prob_of_aug=0.0)
+    frames = make_synthetic_data(num_specimens=1, num_projs=CHECK_FRAMES, img_dim=INFER_FRAME, seed=seed + 1)
+    x = prepare_batch(aug, None, torch.from_numpy(frames.projs[:4]).to(DEVICE))["proj"]
+    int8_frames = make_synthetic_data(num_specimens=1, num_projs=INT8_CHECK_FRAMES, img_dim=INFER_FRAME, seed=seed + 6)
+    x9 = prepare_batch(aug, None, torch.from_numpy(int8_frames.projs).to(DEVICE))["proj"]
+    return frames, x, x9
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _fit_rel(got, want, epoch_steps):
+    """(first epoch, whole run): the largest relative difference of the
+    per-step train and the validation losses of ``got`` (a rank's) from
+    ``want`` (a one-process ``fit``'s), over the first epoch and over all."""
+    first = max(_rel(got["train"][:epoch_steps], want["train_losses"][:epoch_steps]),
+                _rel(got["valid"][:1], want["valid_losses"][:1]))
+    return first, max(_rel(got["train"], want["train_losses"]), _rel(got["valid"], want["valid_losses"]))
+
+
+def _labels_match(name, got, want_seg, seg_err):
+    """Labels equal except where the one-process mean seg's top two are
+    closer than twice the seg difference."""
+    top2 = np.sort(want_seg, axis=1)[:, -2:]
+    differ = got != want_seg.argmax(1)
+    worst = float((top2[:, 1] - top2[:, 0])[differ].max()) if differ.any() else 0.0
+    if worst > 2 * seg_err:
+        raise AssertionError("{}: labels differ where the top two are {:.2e} apart".format(name, worst))
+    return float(differ.mean())
+
+
+def phase_distributed(seed, workdir, member_paths):
+    """Phase 10 (see the module docstring), with deterministic cuDNN in
+    every process. Returns the summary and the launches of the two
+    training paths, counted by the ranks."""
+    try:
+        _rank_setup(True)
+        return _phase_distributed(seed, workdir, member_paths)
+    finally:
+        _rank_setup(False)
+
+
+def _phase_distributed(seed, workdir, member_paths):
+    from deepfluoro_tpu_torch.parallel.multihost import Ranks
+
+    # the ranks start now (spawn, imports, CUDA contexts, the kernel) and
+    # wait while this process computes the one-process references
+    settings = {k: globals()[k] for k in RANK_SETTINGS}
+    go_a, go_b = os.path.join(workdir, "go_a"), os.path.join(workdir, "go_b")
+    t0 = time.perf_counter()
+    ranks_a = Ranks(_rank_nccl, 1, args=(seed, workdir, settings, go_a), device=DEVICE)
+    ranks_b = Ranks(_rank_gloo, 2, args=(seed, workdir, member_paths, settings, go_b), device=DEVICE, backend="gloo")
+    try:
+        refs = _distributed_references(seed, workdir, member_paths)
+        print("  one-process references while the ranks start: {:.1f} s".format(time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        open(go_a, "w").close()
+        (a,) = ranks_a.results(timeout=600)
+        t1 = time.perf_counter()
+        open(go_b, "w").close()
+        ranks = ranks_b.results(timeout=900)
+        print("  (a) ran {:.1f} s, (b)-(d) {:.1f} s after their go".format(t1 - t0, time.perf_counter() - t1))
+    finally:
+        ranks_a.close()
+        ranks_b.close()
+    return _distributed_checks(refs, a, ranks)
+
+
+def _distributed_references(seed, workdir, member_paths):
+    """The one-process runs phase 10's ranks are held against: (a) phase
+    4's recipe; (b) at batch 10; (c) the K = 6 folds; (d) the ensemble,
+    float and int8."""
+    from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.quantized import int8_forwards
+    from deepfluoro_tpu_torch.train import fit
+    from deepfluoro_tpu_torch.train.multifold import fit_multifold
+
+    data = _smoke_data(seed)
+    pats = [2, 3, 4, 5, 6]
+    refs = {"a": fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=2), verbose=False, device=DEVICE,
+                     **_fit_files(workdir, "ref_a"))}
+    cfg_b = _recipe_cfg(data, seed, max_num_epochs=2, batch_size=DIST_BATCH)
+    refs["b"] = fit(data, pats, cfg_b, verbose=False, device=DEVICE, **_fit_files(workdir, "ref_b"))
+    refs["c"] = fit_multifold(data, FOLD_PATS, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE,
+                              checkpoint_prefix=os.path.join(workdir, "rfold_ck"),
+                              best_prefix=os.path.join(workdir, "rfold_best"))
+    frames, x, x9 = _dist_inputs(seed)
+    models = [load_net_from_checkpoint(p, device=DEVICE, verbose=False)[0] for p in member_paths]
+    num_lands, hw = models[0].num_lands, frames.orig_img_shape
+    refs["d"] = {}
+    for mode in ("float", "int8"):
+        fwds = int8_forwards(models, [x9]) if mode == "int8" else models
+        refs["d"][mode] = (
+            [t.cpu().numpy() for t in ensemble_forward(fwds, x9 if mode == "int8" else x, hw, num_lands)],
+            [(l, h) for _, l, h in ensemble_batches(frames, models, num_lands, None, 4, TRAIN_PAD,
+                                                     quantized=mode == "int8", calib_batches=1)])
+    return refs
+
+
+def _distributed_checks(refs, a, ranks):
+    """Phase 10's checks and summary, from the references and the ranks'
+    results; returns (summary, launches of the two training paths)."""
+    summary = {}
+    one, one_b, one_c = refs["a"], refs["b"], refs["c"]
+    rel = _fit_rel(a, one, len(one["train_losses"]) // 2)[1]
+    print("  (a) NCCL, one rank, fit on a {{'data': 1}} mesh, 2 epochs: {} steps, {} warp launches, losses within "
+          "{:.2e} relative of the one-process fit (<= 1e-5); peak less baseline {} bytes".format(
+              a["steps"], a["launches"], rel, a["peak"]))
+    if rel > 1e-5 or a["launches"] != a["steps"]:
+        raise AssertionError("phase 10(a): the one-rank NCCL fit differs from one process")
+    summary["a_nccl_one_rank"] = {"steps": a["steps"], "warp_launches": [a["launches"]], "max_rel_loss_diff": rel,
+                                  "peak_less_baseline": [a["peak"]]}
+
+    b = [r["b"] for r in ranks]
+    first, rel = (max(v) for v in zip(*(_fit_rel(r, one_b, b[0]["steps"] // 2) for r in b)))
+    # how the difference grows along the trajectory, step by step
+    want_b = np.asarray(one_b["train_losses"], np.float64)
+    per_step = np.max([np.abs(np.asarray(r["train"], np.float64) - want_b) / np.abs(want_b) for r in b], axis=0).tolist()
+    bn_equal = all(np.array_equal(b[0]["bn"][k], b[1]["bn"][k]) for k in b[0]["bn"])
+    rates = [len(r["step_seconds"][1:]) / sum(r["step_seconds"][1:]) for r in b]
+    one_rate = len(one_b["step_seconds"][1:]) / sum(one_b["step_seconds"][1:])
+    print("  (b) gloo, two ranks sharing one card, fit at global batch {} ({} per rank), augmentation on, 2 epochs: "
+          "{} steps per rank, warp launches per rank {}, losses against one process at batch {}: first epoch within "
+          "{:.2e} relative (<= 1e-4), both epochs {:.2e} (<= 1e-3), per step {}, BatchNorm buffers equal across "
+          "ranks: {}, {} steps/s per rank (two ranks sharing one card; one process, while the ranks start, {:.3f}), "
+          "peaks less baseline {} bytes; warp pair per rank max |diff| {}".format(
+              DIST_BATCH, DIST_BATCH // 2, b[0]["steps"], [r["launches"] for r in b], DIST_BATCH, first, rel,
+              ["%.1e" % v for v in per_step], bn_equal, ["%.3f" % v for v in rates], one_rate, [r["peak"] for r in b],
+              ["%.2e" % r["warp_err"] for r in b]))
+    if first > 1e-4 or rel > 1e-3 or not bn_equal or any(r["launches"] != r["steps"] for r in b):
+        raise AssertionError("phase 10(b): the two-rank fit differs from one process")
+    summary["b_gloo_two_ranks"] = {
+        "steps_per_rank": b[0]["steps"], "warp_launches": [r["launches"] for r in b],
+        "max_rel_loss_diff_first_epoch": first, "max_rel_loss_diff": rel, "rel_loss_diff_per_step": per_step,
+        "bn_buffers_equal": bn_equal, "steps_per_s_two_ranks_sharing_one_card": rates, "one_process_steps_per_s": one_rate,
+        "peak_less_baseline": [r["peak"] for r in b], "warp_pair_max_abs_err": [r["warp_err"] for r in b]}
+
+    c = [r["c"] for r in ranks]
+    want_train, want_valid = np.array(one_c["train_losses"]), np.array(one_c["valid_losses"])
+    rel = max(max(_rel(r["train"], want_train), _rel(r["valid"], want_valid)) for r in c)
+    rates = [len(r["step_seconds"][1:]) / sum(r["step_seconds"][1:]) for r in c]
+    print("  (c) gloo, two ranks, fit_multifold K = {} split {} + {}, 1 epoch, augmentation on (each rank its folds' "
+          "rows of one process's draws): {} lockstep steps per "
+          "rank, warp launches per rank {}, every fold within {:.2e} relative of one process (<= 1e-3), {} lockstep "
+          "steps/s per rank (two ranks sharing one card), peaks less baseline {} bytes".format(
+              len(FOLD_PATS), len(c[0]["folds"]), len(c[1]["folds"]), c[0]["steps"], [r["launches"] for r in c], rel,
+              ["%.3f" % v for v in rates], [r["peak"] for r in c]))
+    if rel > 1e-3 or any(r["launches"] != r["steps"] for r in c) or [r["folds"] for r in c] != [[0, 1, 2], [3, 4, 5]]:
+        raise AssertionError("phase 10(c): the fold-sharded run differs from one process")
+    summary["c_folds_two_ranks"] = {
+        "lockstep_steps_per_rank": c[0]["steps"], "warp_launches": [r["launches"] for r in c], "max_rel_loss_diff": rel,
+        "steps_per_s_two_ranks_sharing_one_card": rates, "peak_less_baseline": [r["peak"] for r in c]}
+
+    summary["d_ensemble_two_ranks"] = {}
+    for mode in ("float", "int8"):
+        want, want_b = refs["d"][mode]
+        for name in DIST_LAYOUTS:
+            got = ranks[0]["d"][name, mode]
+            seg_err = float(np.abs(got["forward"][0] - want[0]).max())
+            heat_err = float(np.abs(got["forward"][1] - want[1]).max())
+            differ = _labels_match("phase 10(d) " + name + " " + mode, got["forward"][2], want[0], seg_err)
+            batch_heat_err = max(float(np.abs(g[1] - w[1]).max()) for g, w in zip(got["batches"], want_b))
+            batch_differ = float(np.mean(np.concatenate([(g[0] != w[0]).ravel() for g, w in zip(got["batches"], want_b)])))
+            print("  (d) {} ensemble, {} over two ranks against one process: mean seg {:.2e}, heats {:.2e} (<= 1e-5), "
+                  "labels differ on {:.4%} (near-ties only); ensemble_batches heats {:.2e}, labels differ on {:.4%}; "
+                  "rank peaks less baseline {} bytes".format(
+                      mode, name, seg_err, heat_err, differ, batch_heat_err, batch_differ,
+                      [r["d"][name, mode]["peak"] for r in ranks]))
+            if seg_err > 1e-5 or heat_err > 1e-5 or batch_heat_err > 1e-5 or batch_differ >= 1e-3:
+                raise AssertionError("phase 10(d): the sharded {} ensemble ({}) differs from one process".format(mode, name))
+            summary["d_ensemble_two_ranks"]["{} {}".format(mode, name)] = {
+                "seg_max_abs": seg_err, "heats_max_abs": heat_err, "label_share_differ": differ,
+                "peak_less_baseline": [r["d"][name, mode]["peak"] for r in ranks]}
+    launches = {"dp_training": a["launches"] + sum(r["launches"] for r in b),
+                "folds_ensemble_devices": sum(r["launches"] for r in c)}
+    return summary, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the synthetic data, weights and draws")
@@ -1533,7 +1911,8 @@ def main(argv=None) -> int:
             ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
             ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"], results["1 environment"])),
             ("9 int8", lambda: phase_int8(args.seed, results["5 inference"], results["1 environment"])),
-            ("10 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("10 distributed", lambda: phase_distributed(args.seed, workdir, results["5 inference"])),
+            ("11 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -1552,11 +1931,13 @@ def main(argv=None) -> int:
         "folds": results["7 folds"],
         "ladder_2x_training": results["8 ladder"]["2x"],
         "ladder_1x_training": results["8 ladder"]["1x"],
+        **results["10 distributed"][1],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
     int8 = results["9 int8"]
     print("int8 summary: " + json.dumps({k: int8[k] for k in ("fps", "peak", "phase_peak", "gemm_launches",
                                                                "convs_total", "int8_float_label_agreement")}))
+    print("distributed summary: " + json.dumps(results["10 distributed"][0]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -13,8 +13,13 @@ CUDA with TF32 off (the recipe is float32); without a card it refuses
 unless given ``--no-gpu``. ``--int8`` runs the members' post-training
 int8 forwards (``infer/quantized.py``), calibrated on the first
 ``--int8-calib-batches`` batches of the input; ``--profile-dir`` writes a
-``torch.profiler`` trace of the inference. Not ported:
-``--ensemble-devices`` and ``--dp-devices``.
+``torch.profiler`` trace of the inference.
+
+``--ensemble-devices E`` and ``--dp-devices D`` run E x D local workers,
+one per card: each loads its K/E members (E must divide the number of
+``--nets``) and takes its 1/D of every batch (D must divide
+``--batch-size``); process 0 writes the file and the times. Under
+``torchrun`` with E x D processes each process is one of them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import torch
 
 from deepfluoro_tpu_torch.data.hdf5 import get_land_names_from_dataset, load_dataset, write_land_names
 from deepfluoro_tpu_torch.infer.ensemble import load_net_from_checkpoint, seg_dataset_ensemble
+from deepfluoro_tpu_torch.parallel import make_mesh, process_count
+from deepfluoro_tpu_torch.parallel.multihost import is_writer, launch
+from deepfluoro_tpu_torch.parallel.sharding import sum_over
 from deepfluoro_tpu_torch.utils.io import write_floats_to_txt
 from deepfluoro_tpu_torch.utils.platform import get_device
 from deepfluoro_tpu_torch.utils.profiling import profile_trace
@@ -46,22 +54,44 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8", help="post-training int8 quantized inference: every conv runs s8 x s8 -> s32 on the int8 tensor cores with activation scales calibrated on the first batches of the input data (framework extension; the reference infers in float32)", action="store_true")
     parser.add_argument("--int8-calib-batches", help="number of leading input batches used to calibrate the int8 activation scales", type=int, default=4)
     parser.add_argument("--int8-float-levels", help="hybrid mode: keep the finest N U-Net levels in float and quantize only the deeper levels", type=int, default=0)
+    parser.add_argument("--ensemble-devices", help="shard the ensemble members over this many devices (must divide the number of --nets); 0 = off", type=int, default=0)
+    parser.add_argument("--dp-devices", help="also shard each inference batch over this many devices (must divide --batch-size); composes with --ensemble-devices on one mesh", type=int, default=0)
     return parser
 
 
 def main(argv=None):
+    args = build_parser().parse_args(argv)
+    n = max(1, args.ensemble_devices) * max(1, args.dp_devices)
+    launch(run, args, n, device="cpu" if args.no_gpu else "cuda")
+
+
+def run(args):
+    """Run the ensemble on this process (its members and rows when there
+    are several processes)."""
     import h5py
 
-    args = build_parser().parse_args(argv)
     dev = get_device("cpu" if args.no_gpu else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     test_pats = [int(i) for i in args.pats.split(",")]
+    world = process_count()
+    mesh = None
+    nets = args.nets
+    if world > 1:
+        ens = args.ensemble_devices or (world // max(1, args.dp_devices))
+        dp = args.dp_devices or (world // ens)
+        mesh = make_mesh({"ensemble": ens, "data": dp})
+        if len(nets) % ens:
+            raise ValueError("{} ensemble members do not shard evenly over the {}-way 'ensemble' mesh axis".format(
+                len(nets), ens))
+        nets = nets[mesh.axis("ensemble").rows(len(nets))]
+        if is_writer():
+            print("device mesh: {}".format(mesh.axes), flush=True)
 
     models = []
     cfg = None
-    for net_path in args.nets:
+    for net_path in nets:
         print("  loading state from disk for: {}".format(net_path))
         model, net_cfg = load_net_from_checkpoint(net_path, device=dev)
         models.append(model)
@@ -73,6 +103,15 @@ def main(argv=None):
                     raise ValueError("ensemble members disagree on {}: {} vs {} ({})".format(field, a, b, net_path))
         cfg = net_cfg
 
+    if mesh is not None:
+        # every process's members must agree with every other's
+        fields = [cfg.num_lands, cfg.proj_unet_dim, cfg.num_classes]
+        slots = [0.0] * (3 * world)
+        slots[3 * mesh.rank : 3 * mesh.rank + 3] = fields
+        if any(sum_over(slots)[3 * r + i] != fields[i] for r in range(world) for i in range(3)):
+            raise ValueError("ensemble members on different processes disagree on num_lands, proj_unet_dim or "
+                             "num_classes")
+
     land_names = None
     if cfg.num_lands > 0:
         land_names = get_land_names_from_dataset(args.input_data_file_path)
@@ -83,18 +122,25 @@ def main(argv=None):
     test_data = load_dataset(args.input_data_file_path, test_pats, no_seg=True)
     print("Length of testing dataset: {}".format(len(test_data)))
 
-    print("opening destination file for writing")
     times: list[float] = []
-    with h5py.File(args.output_data_file_path, "w") as f:
-        if land_names:
-            write_land_names(f, land_names)
-        print("running network on projections")
+
+    def segment(f):
         with profile_trace(args.profile_dir):
             seg_dataset_ensemble(
                 test_data, models, f, num_lands=cfg.num_lands, times=times, batch_size=args.batch_size,
                 pad_img_dim=cfg.proj_unet_dim, num_classes=cfg.num_classes, quantized=args.int8,
-                calib_batches=args.int8_calib_batches, int8_float_levels=args.int8_float_levels,
+                calib_batches=args.int8_calib_batches, int8_float_levels=args.int8_float_levels, mesh=mesh,
             )
+
+    if not is_writer():
+        segment(None)
+        return
+    print("opening destination file for writing")
+    with h5py.File(args.output_data_file_path, "w") as f:
+        if land_names:
+            write_land_names(f, land_names)
+        print("running network on projections")
+        segment(f)
         print("closing file...")
 
     if args.times:

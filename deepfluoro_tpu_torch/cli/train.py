@@ -16,7 +16,17 @@ without a card it refuses unless given ``--no-gpu``. The ladder's big
 rungs train with ``--bf16 --remat --stream-data``. ``--profile-dir``
 writes a ``torch.profiler`` trace of the run; ``--debug-nans`` turns on
 autograd's anomaly mode, which raises at the backward op that first
-makes a NaN. Not ported: the mesh and process flags.
+makes a NaN.
+
+Data parallelism, one process per card (``train/loop.py::fit``'s mesh):
+``--dp-devices N`` on one host starts N local workers, card r for rank r
+(``--batch-size`` is the global batch and must divide by N);
+``--dp-devices 0`` takes every card. Across hosts, or under ``torchrun
+--nproc-per-node N -m deepfluoro_tpu_torch.cli.train ...``, every process
+runs the same command, with ``--num-processes P --process-id p
+--coordinator host:port`` where ``torchrun`` does not set them; the data
+axis then spans all P processes. NCCL joins them on CUDA, gloo on the
+CPU. Not ported: ``--spatial-devices`` and ``--tp-devices``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ from __future__ import annotations
 import argparse
 
 from deepfluoro_tpu_torch.data.hdf5 import get_num_lands_from_dataset
+from deepfluoro_tpu_torch.parallel import make_mesh, process_count
+from deepfluoro_tpu_torch.parallel.multihost import is_writer, launch, local_device_count
 from deepfluoro_tpu_torch.train.config import TrainConfig
 from deepfluoro_tpu_torch.train.loop import fit
 from deepfluoro_tpu_torch.utils.profiling import enable_nan_debugging, profile_trace
@@ -79,11 +91,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", help="random seed", type=int, default=0)
     p.add_argument("--profile-dir", help="Write a torch.profiler trace (TensorBoard-loadable) to this directory", type=str, default="")
     p.add_argument("--debug-nans", help="Fault on the first NaN-producing backward op (torch.autograd.set_detect_anomaly)", action="store_true")
+    p.add_argument("--dp-devices", help="shard each batch over this many devices (data parallelism, one process per card); 0 = all devices when any parallel flag is active, 1 = off", type=int, default=1)
+    p.add_argument("--num-processes", help="total process count for multi-host training; run one process per card with the same flags", type=int, default=0)
+    p.add_argument("--process-id", help="this process's index in [0, --num-processes)", type=int, default=None)
+    p.add_argument("--coordinator", help="multi-host coordinator address host:port (torch.distributed's TCP store on process 0)", type=str, default=None)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    device = "cpu" if args.no_gpu else "cuda"
+    n_local = local_device_count(device) if args.dp_devices <= 0 else args.dp_devices
+    launch(run, args, n_local, args.num_processes, args.process_id, args.coordinator, device)
+
+
+def run(args):
+    """Train on this process (one rank of a data-parallel group when there
+    are several processes)."""
+    world = process_count()
+    mesh = None
+    if world > 1:
+        if args.dp_devices not in (0, 1, world):
+            raise SystemExit("--dp-devices {} must equal the process count {}: the port runs one process per "
+                             "card".format(args.dp_devices, world))
+        mesh = make_mesh({"data": world})
+        if is_writer():
+            print("device mesh: {}".format(mesh.axes), flush=True)
     train_pats = [int(i) for i in args.train_pats.split(",")]
     valid_pats = None
     if args.train_valid_split < 0:
@@ -149,6 +182,7 @@ def main(argv=None):
             valid_loss_txt=args.valid_loss_txt,
             stream_data=args.stream_data,
             device="cpu" if args.no_gpu else "cuda",
+            mesh=mesh,
         )
 
 

@@ -14,9 +14,15 @@ Writes, per fold (specimen XX is held out of its fold's training):
                                   member, read by cli/test_ensemble.py)
   <checkpoint-prefix>_specXX.pt   periodic checkpoint; a full set resumes
 
-Runs on CUDA; without a card it refuses unless given ``--no-gpu``. Not
-ported: ``--ensemble-devices``, ``--num-processes``, ``--process-id``
-and ``--coordinator``.
+Runs on CUDA; without a card it refuses unless given ``--no-gpu``.
+
+Fold parallelism, one process per card (``fit_multifold``'s mesh):
+``--ensemble-devices E`` on one host starts E local workers, each owning
+K/E folds (E must divide K). Across hosts, or under ``torchrun
+--nproc-per-node E -m deepfluoro_tpu_torch.cli.train_folds ...``, every
+process runs the same command, with ``--num-processes P --process-id p
+--coordinator host:port`` where ``torchrun`` does not set them; the fold
+axis then spans all P processes.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 import argparse
 
 from deepfluoro_tpu_torch.data.hdf5 import get_num_lands_from_dataset
+from deepfluoro_tpu_torch.parallel import make_mesh, process_count
+from deepfluoro_tpu_torch.parallel.multihost import is_writer, launch
 from deepfluoro_tpu_torch.train.config import TrainConfig
 from deepfluoro_tpu_torch.train.multifold import fit_multifold
 
@@ -77,11 +85,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--remat", help="Rematerialize activations per U-Net block (memory for compute; equal up to float reassociation)", action="store_true")
     p.add_argument("--no-gpu", help="run on the CPU", action="store_true")
+    p.add_argument("--ensemble-devices", help="shard the fold axis over this many devices (an 'ensemble' mesh axis, one process per card); 0 = single device (or, multi-process, every process)", type=int, default=0)
+    p.add_argument("--num-processes", help="total process count for multi-host fold training; run one process per card with the same flags", type=int, default=0)
+    p.add_argument("--process-id", help="this process's index in [0, --num-processes)", type=int, default=None)
+    p.add_argument("--coordinator", help="multi-host coordinator address host:port (torch.distributed's TCP store on process 0)", type=str, default=None)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    launch(run, args, max(1, args.ensemble_devices), args.num_processes, args.process_id, args.coordinator,
+           "cpu" if args.no_gpu else "cuda")
+
+
+def run(args):
+    """Train the folds on this process (the owner of K/E of them when
+    there are several processes)."""
+    world = process_count()
+    mesh = None
+    if world > 1:
+        if args.ensemble_devices not in (0, world):
+            raise SystemExit("--ensemble-devices {} must equal the process count {}: the port runs one process "
+                             "per card".format(args.ensemble_devices, world))
+        mesh = make_mesh({"ensemble": world})
+        if is_writer():
+            print("device mesh: {}".format(mesh.axes), flush=True)
     pats = [int(p) for p in args.pats.split(",")]
     assert len(pats) >= 2, "need at least two specimens for leave-one-out"
     num_lands = 0
@@ -138,7 +166,10 @@ def main(argv=None):
         valid_loss_txt_prefix=args.valid_loss_prefix or None,
         stream_data=args.stream_data,
         device="cpu" if args.no_gpu else "cuda",
+        mesh=mesh,
     )
+    if not is_writer():
+        return
     for k, p in enumerate(pats):
         print("fold {} (held-out spec {:02d}): best valid {:.6f} -> {}_spec{:02d}.pt".format(
             k, p, out["best_valid_losses"][k], args.net_prefix, p))

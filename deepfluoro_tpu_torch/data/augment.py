@@ -179,14 +179,23 @@ def apply_augmentation(draws: dict, p: torch.Tensor, s: torch.Tensor | None, lan
     return p, s, lands
 
 
-def prepare_batch(cfg: AugmentConfig, gen: torch.Generator | None, projs: torch.Tensor, segs=None, lands=None) -> dict:
+def prepare_batch(cfg: AugmentConfig, gen: torch.Generator | None, projs: torch.Tensor, segs=None, lands=None,
+                  draw_rows: tuple[int, int] | None = None) -> dict:
     """Maybe-augment, pad, z-norm, one-hot and heatmaps for a batch.
 
     projs (B, H, W); segs (B, H, W) integer labels or None; lands (B, 2, L)
     or None. ``gen`` may be None when ``cfg.prob_of_aug == 0``. Returns
     'proj' (B, 1, Hp, Wp) and, for the inputs given, 'seg' (B, C, H, W)
     one-hot, 'lands' (B, 2, L) and 'heats' (B, L, H, W): the JAX package's
-    arrays with channels first."""
+    arrays with channels first.
+
+    ``draw_rows=(start, total)``, by default (0, B): the batch is rows
+    [start, start + B) of a larger one of ``total`` rows (a process's
+    slice of a data-parallel global batch, or its folds of a lockstep
+    step). The draws are made for all ``total`` rows and these rows' are
+    kept, so every process takes the generator's stream as one process
+    would, and the augmented rows equal one process's. Every later stage
+    works per row."""
     b, h, w = projs.shape
     # the pad amounts, warp frames and erase boxes assume square frames
     assert h == w, "only square projections supported (reference dataset.py:85)"
@@ -194,7 +203,8 @@ def prepare_batch(cfg: AugmentConfig, gen: torch.Generator | None, projs: torch.
     p = projs.float()
 
     if cfg.prob_of_aug > 0:
-        draws = draw_augmentation(gen, b, h, w, cfg)
+        start, total = draw_rows or (0, b)
+        draws = {k: v[start : start + b] for k, v in draw_augmentation(gen, total, h, w, cfg).items()}
         p_aug, s_aug, l_aug = apply_augmentation(draws, p, segs, lands, cfg)
         take = draws["aug"][:, None, None]
         p = torch.where(take, p_aug, _reflect_pad(p, extra))

@@ -276,6 +276,103 @@ def load_dataset(
     return data
 
 
+class LazyFluoroReader:
+    """Rows of the archive read on demand: the per-process feed of
+    data-parallel streaming (JAX counterpart: ``data/hdf5.py::
+    LazyFluoroReader``). ``take(rows)`` reads exactly the requested rows
+    from disk, so a process that feeds its slice of every global batch
+    reads about N/P rows per epoch and holds O(batch) rows in memory.
+
+    Rows follow ``load_dataset`` row for row: specimens concatenate in
+    ``pat_inds`` order, landmarks are checked finite and marked inf out of
+    view. With ``dup_lr_flip`` the row space doubles: row ``i + n_base`` is
+    the left/right mirror of row ``i`` (``_mirror_rows``, the math of
+    ``lr_flip_duplicate``), so streamed and resident runs see the same
+    batches. The h5py handle is not thread-safe: one thread at a time
+    calls ``take`` (the training loop's prefetch producer)."""
+
+    def __init__(self, h5_file_path: str, pat_inds: Sequence[int], dup_lr_flip: bool = False,
+                 class_swap: Sequence[tuple[int, int]] = ((1, 2), (5, 6))):
+        import h5py
+
+        self._f = h5py.File(h5_file_path, "r")
+        self._groups = []
+        self.orig_img_shape = None
+        counts, has_segs, has_lands = [], [], []
+        for pat_idx in pat_inds:
+            g = self._f["{:02d}".format(pat_idx)]
+            shape = g["projs"].shape
+            assert len(shape) == 3
+            if self.orig_img_shape is None:
+                self.orig_img_shape = (shape[1], shape[2])
+            else:
+                assert self.orig_img_shape == (shape[1], shape[2])
+            counts.append(shape[0])
+            has_segs.append("segs" in g)
+            has_lands.append("lands" in g)
+            self._groups.append(g)
+        assert len(set(has_segs)) == 1 and len(set(has_lands)) == 1, (
+            "specimens {} disagree on having segs/lands".format(list(pat_inds))
+        )
+        self.has_segs, self.has_lands = has_segs[0], has_lands[0]
+        self._offsets = np.concatenate([[0], np.cumsum(counts)])
+        self.n_base = int(self._offsets[-1])
+        self._dup = dup_lr_flip
+        self._class_swap = class_swap
+        self.land_names = archive_land_names(h5_file_path) if dup_lr_flip and self.has_lands else None
+        self.num_lands = self._groups[0]["lands"].shape[2] if self.has_lands else 0
+
+    def __len__(self) -> int:
+        return self.n_base * 2 if self._dup else self.n_base
+
+    def close(self) -> None:
+        """Idempotent."""
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+            self._groups = []
+
+    def _read(self, name: str, rows: np.ndarray, dtype) -> np.ndarray:
+        """Base rows in any order, repeats allowed: h5py reads sorted unique
+        indices per specimen; the request order is restored after."""
+        uniq, inverse = np.unique(rows, return_inverse=True)
+        parts = []
+        for si, g in enumerate(self._groups):
+            lo, hi = self._offsets[si], self._offsets[si + 1]
+            m = (uniq >= lo) & (uniq < hi)
+            if m.any():
+                parts.append(g[name][(uniq[m] - lo).astype(np.int64)])
+        return np.concatenate(parts).astype(dtype)[inverse]
+
+    def take(self, indices: Sequence[int]):
+        """(projs, segs, lands) numpy arrays of the given rows, in request
+        order (segs/lands None when the archive lacks them)."""
+        idx = np.asarray(indices, np.int64)
+        assert idx.size and idx.min() >= 0 and idx.max() < len(self), "rows out of range for {}-row reader".format(
+            len(self))
+        mirrored = idx >= self.n_base
+        base = np.where(mirrored, idx - self.n_base, idx)
+        projs = self._read("projs", base, np.float32)
+        segs = self._read("segs", base, np.uint8) if self.has_segs else None
+        lands = None
+        if self.has_lands:
+            lands = self._read("lands", base, np.float32)
+            assert np.all(np.isfinite(lands)), "inputs must be finite (dataset.py:419)"
+            lands = mark_oob_landmarks_inf(lands, self.orig_img_shape)
+        if mirrored.any():
+            m = mirrored
+            m_projs, m_segs, m_lands = _mirror_rows(
+                projs[m], None if segs is None else segs[m], None if lands is None else lands[m],
+                self.orig_img_shape[1], self.land_names, self._class_swap,
+            )
+            projs[m] = m_projs
+            if segs is not None:
+                segs[m] = m_segs
+            if lands is not None:
+                lands[m] = m_lands
+        return projs, segs, lands
+
+
 def archive_land_names(h5_file_path: str) -> list[str] | None:
     """The archive's landmark names, or None when it has no readable
     land-names group (flip duplication then swaps adjacent pairs)."""

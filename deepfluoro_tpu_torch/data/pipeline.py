@@ -8,6 +8,12 @@ archives too large for the card: a producer thread gathers each batch's
 rows into pinned buffers and copies them to the card on a side stream
 while the consumer trains on the batch before (``prefetch_sequence``,
 ``HostToDevice``). Both give the same batch order for the same seed.
+
+With ``part=(index, count)`` either iterator yields process ``index``'s
+contiguous slice of every global batch (``parallel/multihost.py::
+local_batch_slice``), the multi-process feed of data parallelism; a global
+batch that does not split evenly over the ``count`` processes (a final
+partial one) is skipped, as the JAX package's multi-process feed drops it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,20 @@ import numpy as np
 import torch
 
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData
+from deepfluoro_tpu_torch.parallel.multihost import local_batch_slice
+
+
+def _batch_rows(order: np.ndarray, batch_size: int, part):
+    """Each batch's rows of ``order``, or with ``part`` this process's
+    slice of each global batch that splits evenly."""
+    for start in range(0, len(order), batch_size):
+        rows = order[start : start + batch_size]
+        if part is not None:
+            index, count = part
+            if len(rows) % count:
+                continue
+            rows = local_batch_slice(rows, index, count)
+        yield rows
 
 
 class BatchIterator:
@@ -27,14 +47,16 @@ class BatchIterator:
     are None when the data has none. With ``shuffle`` each epoch permutes
     the rows with ``rng`` (a numpy Generator, so the order equals the JAX
     package's for the same seed). The final partial batch is kept, like
-    torch DataLoader's drop_last=False."""
+    torch DataLoader's drop_last=False; ``part`` as the module says."""
 
-    def __init__(self, data: FluoroData, batch_size: int, device, shuffle: bool = False, rng: np.random.Generator | None = None):
+    def __init__(self, data: FluoroData, batch_size: int, device, shuffle: bool = False, rng: np.random.Generator | None = None,
+                 part: tuple[int, int] | None = None):
         if shuffle and rng is None:
             raise ValueError("shuffle needs an explicit numpy Generator")
         self.n = len(data)
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.part = part
         self._rng = rng
         put = lambda a: None if a is None else torch.as_tensor(a).to(device)  # noqa: E731
         self.projs = put(data.projs)
@@ -45,8 +67,8 @@ class BatchIterator:
         order = np.arange(self.n)
         if self.shuffle:
             self._rng.shuffle(order)
-        for start in range(0, self.n, self.batch_size):
-            idx = torch.as_tensor(order[start : start + self.batch_size]).to(self.projs.device)
+        for rows in _batch_rows(order, self.batch_size, self.part):
+            idx = torch.as_tensor(rows).to(self.projs.device)
             take = lambda a: None if a is None else a.index_select(0, idx)  # noqa: E731
             yield self.projs.index_select(0, idx), take(self.segs), take(self.lands)
 
@@ -111,10 +133,14 @@ class HostToDevice:
     for the allocator. On the CPU ``put`` is a plain gather.
 
     ``put(rows)`` returns (tensors, event): one tensor per array (None for
-    an absent array) and the copy's event (None on the CPU)."""
+    an absent array) and the copy's event (None on the CPU). With ``take``
+    the rows come from ``take(rows)`` (a tuple of arrays, e.g.
+    ``LazyFluoroReader.take``) and ``arrays`` only give each array's
+    dtype and row shape."""
 
-    def __init__(self, arrays, max_rows: int, device, slots: int = 4):
+    def __init__(self, arrays, max_rows: int, device, slots: int = 4, take=None):
         self.arrays = arrays
+        self._take = take
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
@@ -128,20 +154,26 @@ class HostToDevice:
             self._slot = 0
 
     def put(self, rows: np.ndarray):
+        n = len(rows)
+        if self._take is None:
+            gather = lambda a, buf: np.take(a, rows, axis=0, out=buf)  # noqa: E731
+            src = self.arrays
+        else:
+            gather = lambda a, buf: np.copyto(buf, a)  # noqa: E731
+            src = self._take(rows)
         if not self._cuda:
-            return tuple(None if a is None else torch.from_numpy(a[rows]) for a in self.arrays), None
+            return tuple(None if a is None else torch.from_numpy(a[rows] if self._take is None else a) for a in src), None
         slot = self._slot
         self._slot = (slot + 1) % len(self._buffers)
         if self._events[slot] is not None:
             self._events[slot].synchronize()
-        n = len(rows)
         out = []
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            for a, buf in zip(self.arrays, self._buffers[slot]):
+            for a, buf in zip(src, self._buffers[slot]):
                 if a is None:
                     out.append(None)
                     continue
-                np.take(a, rows, axis=0, out=buf[:n].numpy())
+                gather(a, buf[:n].numpy())
                 out.append(buf[:n].to(self.device, non_blocking=True))
             event = torch.cuda.Event()
             event.record(self._stream)
@@ -165,16 +197,22 @@ class PrefetchIterator:
     batches ahead by a producer thread. With ``shuffle`` each epoch
     permutes the rows with ``np.random.default_rng(seed)``, one shuffle per
     epoch, so the order equals ``BatchIterator``'s given
-    ``np.random.default_rng(seed)``, and the JAX ``PrefetchIterator``'s."""
+    ``np.random.default_rng(seed)``, and the JAX ``PrefetchIterator``'s.
+    ``data`` is a ``FluoroData``, or any object with ``projs``, ``segs``
+    and ``lands`` (dtype and row shape) and ``take(rows)`` that reads the
+    rows (``loop.py::ReaderRows``); ``part`` as the module says."""
 
-    def __init__(self, data: FluoroData, batch_size: int, device, shuffle: bool = True, seed: int = 0, prefetch: int = 2):
+    def __init__(self, data, batch_size: int, device, shuffle: bool = True, seed: int = 0, prefetch: int = 2,
+                 part: tuple[int, int] | None = None):
         assert prefetch >= 1
         self.n = len(data)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
+        self.part = part
         self._rng = np.random.default_rng(seed)
-        self._feed = HostToDevice((data.projs, data.segs, data.lands), batch_size, device, slots=prefetch + 2)
+        self._feed = HostToDevice((data.projs, data.segs, data.lands), batch_size, device, slots=prefetch + 2,
+                                  take=getattr(data, "take", None))
 
     def __len__(self) -> int:
         return -(-self.n // self.batch_size)
@@ -183,8 +221,8 @@ class PrefetchIterator:
         order = np.arange(self.n)
         if self.shuffle:
             self._rng.shuffle(order)
-        starts = range(0, self.n, self.batch_size)
-        items = prefetch_sequence(lambda i: self._feed.put(order[starts[i] : starts[i] + self.batch_size]), len(starts), self.prefetch)
+        batches = list(_batch_rows(order, self.batch_size, self.part))
+        items = prefetch_sequence(lambda i: self._feed.put(batches[i]), len(batches), self.prefetch)
         try:
             for item in items:
                 yield self._feed.ready(item)

@@ -21,8 +21,14 @@ into the file.
 ``calib_batches`` prepared batches of the same unshuffled iterator, and
 the finest ``int8_float_levels`` U-Net levels left in float.
 
-Not ported: the ``mesh`` argument and loading the JAX package's msgpack
-checkpoints.
+With a mesh (``parallel/mesh.py``) of an 'ensemble' axis of E processes
+and a 'data' axis of D, one process per card, each process runs its K/E
+members on its 1/D slice of every batch (an uneven tail padded), the
+member sums of the seg and heats are summed over all processes and
+divided by the total K, and process 0 writes the file (JAX:
+``parallel/sharding.py::make_sharded_ensemble_forward``, its int8 twin).
+
+Not ported: loading the JAX package's msgpack checkpoints.
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
+from deepfluoro_tpu_torch.parallel.multihost import is_writer, process_count
+from deepfluoro_tpu_torch.parallel.sharding import sum_over
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.utils.platform import get_device
 
@@ -105,8 +114,8 @@ def postprocess_net_output(out, orig_hw, num_lands: int):
     return seg, heats
 
 
-def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
-    """The mean over members of ``post(model(proj), orig_hw, num_lands)``:
+def _member_sum(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
+    """The sum over members of ``post(model(proj), orig_hw, num_lands)``:
     (seg, heats or None), one forward per member; a member is a module or
     any callable of ``proj`` (``infer/quantized.py::member_forwards``)."""
     seg_sum = heat_sum = None
@@ -115,18 +124,44 @@ def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
         seg_sum = seg if seg_sum is None else seg_sum + seg
         if heats is not None:
             heat_sum = heats if heat_sum is None else heat_sum + heats
+    return seg_sum, heat_sum
+
+
+def _member_mean(models, proj: torch.Tensor, orig_hw, num_lands: int, post):
+    seg_sum, heat_sum = _member_sum(models, proj, orig_hw, num_lands, post)
     k = len(models)
     return seg_sum / k, None if heat_sum is None else heat_sum / k
 
 
 @torch.no_grad()
-def ensemble_forward(models, proj: torch.Tensor, orig_hw, num_lands: int):
+def ensemble_forward(models, proj: torch.Tensor, orig_hw, num_lands: int, mesh=None):
     """(prepared ``proj`` (B, 1, Hp, Wp)) -> (mean softmax seg (B, C, H, W),
     mean normalized heats (B, L, H, W) or None, argmax labels (B, H, W)
     uint8). K forwards, one per member; the members must be in eval mode
     (``load_net_from_checkpoint`` returns them so) or be callables, as the
-    int8 members of ``infer/quantized.py``."""
-    avg_seg, avg_heats = _member_mean(models, proj, orig_hw, num_lands, postprocess_net_output)
+    int8 members of ``infer/quantized.py``.
+
+    With ``mesh`` the ensemble is spread over its processes: ``models``
+    are this process's members, the same number on each, and ``proj`` the
+    whole batch, whose rows divide by the 'data' axis. Each process runs
+    its members on its slice of the rows; the sums, each process's in its
+    own rows of a zero buffer, are summed over all processes, so every
+    process gets the whole batch's result. The mean divides by the total
+    member count, not by the number of processes. One process runs its
+    members on the whole batch and reduces nothing."""
+    k = len(models) if mesh is None else len(models) * mesh.axis("ensemble").size
+    b = int(proj.shape[0])
+    rows = slice(0, b) if mesh is None else mesh.axis("data").rows(b)
+    shared = mesh is not None and process_count() > 1
+    sums = []
+    for part in _member_sum(models, proj[rows], orig_hw, num_lands, postprocess_net_output):
+        if part is not None and shared:
+            full = part.new_zeros((b,) + tuple(part.shape[1:]))
+            full[rows] = part
+            dist.all_reduce(full)
+            part = full
+        sums.append(None if part is None else part / k)
+    avg_seg, avg_heats = sums
     return avg_seg, avg_heats, avg_seg.argmax(dim=1).to(torch.uint8)
 
 
@@ -170,6 +205,7 @@ def ensemble_batches(
     quantized: bool = False,
     calib_batches: int = 4,
     int8_float_levels: int = 0,
+    mesh=None,
 ):
     """Yield ``(start, labels (b, H, W) uint8, heats (b, L, H, W) float32 or
     None)`` numpy batches over ``data`` in order, the final partial batch
@@ -181,10 +217,25 @@ def ensemble_batches(
     batch shape, the final partial one too, runs once before timing, so
     no first-call cost lands in it. With ``quantized`` the forwards are
     int8, calibrated before the warm-up on the first ``calib_batches``
-    batches (ValueError for fewer than 1, or for an empty dataset)."""
+    batches (ValueError for fewer than 1, or for an empty dataset).
+
+    With ``mesh`` every process calls this in lockstep with its own
+    members, the same number on each (``ensemble_forward``); the batch
+    size must divide by the 'data' axis, and a final partial batch is
+    padded to a multiple of it with copies of its last frame. Each
+    process calibrates its own int8 members on the whole leading batches.
+    Process 0 yields the arrays; the others yield (start, None, None)."""
     dev = _device_of(models)
     orig_hw = data.orig_img_shape
     n = len(data)
+    writer, d = True, 1
+    if mesh is not None:
+        writer, d = is_writer(), mesh.axis("data").size
+        if sum_over([len(models)])[0] != len(models) * process_count():
+            raise ValueError("every process must hold the same number of ensemble members")
+        if batch_size % d:
+            raise ValueError("batch size {} does not shard evenly over the {}-way 'data' mesh axis".format(
+                batch_size, d))
     aug_cfg = AugmentConfig(num_classes=num_classes, proj_pad_dim=pad_img_dim, prob_of_aug=0.0, include_heat_map=False)
 
     def prep(projs):
@@ -200,7 +251,12 @@ def ensemble_batches(
     fwds = _member_forwards(models, it, prep, quantized, calib_batches, int8_float_levels)
 
     def run(projs):
-        return ensemble_forward(fwds, prep(projs), orig_hw, num_lands)
+        b = int(projs.shape[0])
+        pad = (-b) % d
+        if pad:
+            projs = torch.cat([projs, projs[-1:].expand(pad, *projs.shape[1:])])
+        out = ensemble_forward(fwds, prep(projs), orig_hw, num_lands, mesh)
+        return tuple(None if t is None else t[:b] for t in out)
 
     for warm_b in {min(batch_size, n), n % batch_size} - {0}:
         run(it.projs[:warm_b])
@@ -215,7 +271,10 @@ def ensemble_batches(
         elapsed = time.perf_counter() - t0
         if times is not None:
             times.extend([elapsed / b] * b)
-        yield start, labels.cpu().numpy(), None if avg_heats is None else avg_heats.cpu().numpy()
+        if writer:
+            yield start, labels.cpu().numpy(), None if avg_heats is None else avg_heats.cpu().numpy()
+        else:
+            yield start, None, None
         start += b
 
 
@@ -254,14 +313,22 @@ def seg_dataset_ensemble(
     quantized: bool = False,
     calib_batches: int = 4,
     int8_float_levels: int = 0,
+    mesh=None,
 ) -> None:
     """Run the ensemble over ``data`` and write ``nn-segs``/``nn-heats``
     into the open h5py file ``h5_f`` (reference util.py:293-377).
     ``models``: the members from ``load_net_from_checkpoint``, all of one
-    architecture and on one device; ``quantized`` and the rest as
-    ``ensemble_batches``."""
+    architecture and on one device; ``quantized``, ``mesh`` and the rest
+    as ``ensemble_batches``. Under a mesh, process 0 writes the file and
+    every other process passes ``h5_f=None``."""
     batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes, quantized,
-                               calib_batches, int8_float_levels)
+                               calib_batches, int8_float_levels, mesh)
+    if (h5_f is None) == (mesh is None or is_writer()):
+        raise ValueError("process 0 writes the output file: it passes h5_f, every other process None")
+    if h5_f is None:
+        for _ in batches:
+            pass
+        return
     write_ensemble_outputs(h5_f, batches, len(data), data.orig_img_shape, num_lands)
 
 

@@ -45,22 +45,34 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepfluoro_tpu_torch.ops.image import center_crop
+from deepfluoro_tpu_torch.parallel import sharding
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """torch's BatchNorm2d (same buffers and state_dict keys) that records
-    the values per channel of its last train-mode input, ``n_last``, for
+    the values per channel of its last train-mode batch, ``n_last``, for
     the running-variance correction in ``UNet.forward``. While
     ``recomputing`` (a rematerialized block's forward, run again inside
     backward), a train-mode forward updates copies of the running
     statistics, which are thrown away: the output and the tensors saved
-    for backward are those of the first forward."""
+    for backward are those of the first forward.
+
+    With a process ``group`` (``parallel/sharding.py::sync_batch_norm``,
+    data parallelism) the train-mode statistics are those of the group's
+    global batch, as the JAX package's data-parallel step computes them:
+    ``n_last`` is the global count, and the running statistics take
+    torch's update with it, so every rank's buffers stay equal and the
+    correction gives flax's. ``nn.SyncBatchNorm`` is not used: its running
+    variance keeps the n/(n-1) factor the correction removes."""
 
     n_last = 0
     recomputing = False
+    group = None
 
     def forward(self, x):
         if self.training:
+            if self.group is not None:
+                return self._synchronized(x)
             self.n_last = x.numel() // x.shape[1]
             if self.recomputing:
                 return F.batch_norm(
@@ -68,6 +80,17 @@ class BatchNorm2d(nn.BatchNorm2d):
                     self.momentum, self.eps,
                 )
         return super().forward(x)
+
+    def _synchronized(self, x):
+        with torch.no_grad():
+            mean, var, n = sharding.global_batch_stats(x, self.group)
+            self.n_last = n
+            if not self.recomputing:
+                self.running_mean.lerp_(mean.float(), self.momentum)
+                self.running_var.lerp_((var * (n / (n - 1))).float(), self.momentum)
+                self.num_batches_tracked.add_(1)
+            invstd = torch.rsqrt(var + self.eps).float()
+        return sharding.SyncBatchNormFn.apply(x, self.weight, self.bias, mean.float(), invstd, n, self.group)
 
 
 def _conv3x3(in_size: int, out_size: int, padding: bool, pad_mode: str) -> nn.Conv2d:

@@ -19,6 +19,16 @@ plateau or cosine LR, best-validation saves, periodic checkpoints, resume
 and flip duplication. As in the JAX package, an epoch is
 ceil(max_k n_k / B) lockstep steps, and the smaller folds' streams wrap
 around and reshuffle.
+
+With a mesh whose 'ensemble' axis spans E processes, one per card, the
+fold axis is sharded as in the JAX package: process e owns folds
+[e K/E, (e+1) K/E) and steps them in lockstep over the same union
+batches, one ``prepare_batch`` of (K/E) B frames per step (one warp
+launch), with the augmentation draws one process would make for its
+rows. The host loop is the same on every process: all K index streams,
+schedules and best losses, fed by the per-fold losses gathered each step
+and each epoch. Each fold's files are written by its owner, the loss
+logs by process 0.
 """
 
 from __future__ import annotations
@@ -33,6 +43,9 @@ import torch
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData, load_dataset, specimen_counts, split_indices
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator, HostToDevice, PrefetchIterator, prefetch_sequence
+from deepfluoro_tpu_torch.parallel.mesh import Axis
+from deepfluoro_tpu_torch.parallel.multihost import is_writer
+from deepfluoro_tpu_torch.parallel.sharding import agree_any, barrier, gather_folds, sum_over
 from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.train.loop import (
@@ -94,13 +107,15 @@ def save_fold_checkpoints(cfg: TrainConfig, models, paths, epoch: int = 0, last_
         )
 
 
-def multifold_step(models, optimizers, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lrs) -> torch.Tensor:
+def multifold_step(models, optimizers, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lrs,
+                   draw_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """One lockstep step: ``batch`` = (projs, segs, lands) of K*B frames,
     fold-major; one ``prepare_batch`` over all of them (one warp launch),
     then fold k's update on its B frames at ``lrs[k]``. Returns the (K,)
-    losses, detached, on the device."""
+    losses, detached, on the device. ``draw_rows`` as ``prepare_batch``'s:
+    these folds' rows of a larger lockstep step."""
     projs, segs, lands = batch
-    prepared = prepare_batch(aug_cfg, gen, projs, segs, lands)
+    prepared = prepare_batch(aug_cfg, gen, projs, segs, lands, draw_rows=draw_rows)
     b = projs.shape[0] // len(models)
     return torch.stack([
         update_step(model, opt, cfg, {key: v[k * b : (k + 1) * b] for key, v in prepared.items()}, lr)
@@ -108,13 +123,14 @@ def multifold_step(models, optimizers, cfg: TrainConfig, aug_cfg: AugmentConfig,
     ])
 
 
-def _build_models(cfg: TrainConfig, k_folds: int, dev):
-    # K differently initialised nets from one seeded stream; the caller's
-    # global RNG state is left as it was
+def _build_models(cfg: TrainConfig, k_folds: int, dev, keep=None):
+    # K differently initialised nets from one seeded stream, of which the
+    # folds ``keep`` (default all) go to the device; the caller's global
+    # RNG state is left as it was
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         models = [build_model(cfg) for _ in range(k_folds)]
-    return [m.to(dev) for m in models]
+    return [models[k].to(dev) for k in (range(k_folds) if keep is None else keep)]
 
 
 class _ResidentGather:
@@ -142,6 +158,7 @@ def fit_multifold(
     stream_data: bool = False,
     verbose: bool = True,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> dict:
     """Train the K = len(pats) leave-one-specimen-out folds in lockstep on
     ``device`` (default CUDA; raises without a card unless
@@ -157,23 +174,42 @@ def fit_multifold(
     checkpoints present resume every fold; some of them raise.
 
     ``data`` is an archive path or a ``FluoroData`` with ``pat_inds``.
-    Returns dict(models, optimizers, cfg, epoch, num_restarts,
+    Returns dict(models, optimizers, folds, cfg, epoch, num_restarts,
     best_valid_losses (K,), fold_pats, train_idx, valid_idx, train_losses
     (one (K,) array per step), valid_losses (one (K,) array per epoch),
-    step_seconds) for this session.
+    step_seconds) for this session; ``models`` and ``optimizers`` are
+    those of the folds ``folds`` (all K without a mesh).
+
+    ``mesh`` (``parallel.make_mesh({'ensemble': E})``, every process
+    calling in lockstep, each on its own card) shards the folds as the
+    module says; E must divide K. Every process must see every fold
+    checkpoint to resume.
     """
+    writer = is_writer()
 
     def log(msg):
-        if verbose:
+        if verbose and writer:
             print(msg, flush=True)
 
     dev = get_device(device)
     k_folds = len(pats)
     assert k_folds >= 2, "need at least two specimens for leave-one-out"
+    ens = Axis() if mesh is None else mesh.axis("ensemble")
+    if mesh is not None and set(mesh.axis_names) - {"ensemble"}:
+        raise ValueError("fit_multifold shards over an 'ensemble' axis only; got mesh axes {}".format(mesh.axes))
+    if k_folds % ens.size:
+        raise ValueError("{} folds do not shard evenly over the {}-way 'ensemble' mesh axis".format(k_folds, ens.size))
+    own = list(range(k_folds))[ens.rows(k_folds)]
+    local = {k: i for i, k in enumerate(own)}
     ck_paths = ["{}_spec{:02d}.pt".format(checkpoint_prefix, p) for p in pats]
     best_paths = ["{}_spec{:02d}.pt".format(best_prefix, p) for p in pats]
 
     have_ck = [os.path.exists(p) for p in ck_paths]
+    if ens.size > 1:
+        seen = sum_over(have_ck, ens.group)
+        if any(c not in (0, ens.size) for c in seen):
+            raise RuntimeError("fold checkpoints visible on some processes but not others; a multi-process resume "
+                               "needs them on storage every process sees (processes seeing each: {})".format(seen))
     resume = all(have_ck)
     if any(have_ck) and not resume:
         raise RuntimeError(
@@ -240,7 +276,7 @@ def fit_multifold(
     )
 
     log("creating {} fold networks".format(k_folds))
-    models = _build_models(cfg, k_folds, dev)
+    models = _build_models(cfg, k_folds, dev, own)
     optimizers = [make_optimizer(cfg, m.parameters()) for m in models]
     scheds = [make_scheduler(cfg) for _ in range(k_folds)]
     epoch = 0
@@ -248,7 +284,9 @@ def fit_multifold(
     best_valid = [None] * k_folds
     if resume:
         for k in range(k_folds):
-            best_valid[k] = restore_training_state(prev[k], models[k], optimizers[k], scheds[k], log)
+            i = local.get(k)
+            best_valid[k] = restore_training_state(prev[k], None if i is None else models[i],
+                                                   None if i is None else optimizers[i], scheds[k], log)
         epoch = int(prev[0]["epoch"])
         num_restarts = int(prev[0].get("lrs-num-restarts", 0))
         del prev
@@ -258,17 +296,19 @@ def fit_multifold(
     streams = [_FoldStream(train_idx[k], cfg.seed + 101 * (k + 1)) for k in range(k_folds)]
     steps_per_epoch = -(-max(len(t) for t in train_idx) // cfg.batch_size)
     if stream_data:
-        feed = HostToDevice((union.projs, union.segs, union.lands), k_folds * cfg.batch_size, dev)
-        valid_iters = [PrefetchIterator(union.subset(v), cfg.batch_size, dev, shuffle=False) for v in valid_idx]
+        feed = HostToDevice((union.projs, union.segs, union.lands), len(own) * cfg.batch_size, dev)
+        valid_iters = [PrefetchIterator(union.subset(valid_idx[k]), cfg.batch_size, dev, shuffle=False) for k in own]
     else:
         gather = _ResidentGather(union, dev)
-        valid_iters = [BatchIterator(union.subset(v), cfg.batch_size, dev) for v in valid_idx]
+        valid_iters = [BatchIterator(union.subset(valid_idx[k]), cfg.batch_size, dev) for k in own]
+    draw_rows = (own[0] * cfg.batch_size, k_folds * cfg.batch_size)
 
     def draw(_):
-        return np.stack([st.take(cfg.batch_size) for st in streams])
+        # every fold's stream moves on every process; this one's rows are kept
+        return np.stack([st.take(cfg.batch_size) for st in streams])[own]
 
     def writer_set(prefix):
-        if prefix is None:
+        if prefix is None or not writer:
             return None
         return [RunningFloatWriter("{}_spec{:02d}.txt".format(prefix, p), new_file=not resume) for p in pats]
 
@@ -277,7 +317,7 @@ def fit_multifold(
 
     def save_fold(k, path, light=False):
         checkpointer.save(
-            path, cfg, models[k], None if light else optimizers[k],
+            path, cfg, models[local[k]], None if light else optimizers[local[k]],
             sched_state=None if light or scheds[k] is None else scheds[k].state_dict(),
             epoch=epoch, best_valid_loss=best_valid[k], last_loss=last_losses[k], num_restarts=num_restarts,
             train_idx=train_idx[k], valid_idx=valid_idx[k],
@@ -304,7 +344,9 @@ def fit_multifold(
             for s in range(steps_per_epoch):
                 lrs = [cfg.init_lr if sc is None else sc.get_lr() for sc in scheds]
                 batch = feed.ready(next(batches)) if stream_data else gather(draw(s))
-                vals = multifold_step(models, optimizers, cfg, aug_train, gen, batch, lrs).cpu().numpy()
+                vals = multifold_step(models, optimizers, cfg, aug_train, gen, batch, [lrs[k] for k in own],
+                                      draw_rows).cpu().numpy()
+                vals = np.array(gather_folds(vals, ens, k_folds), np.float32)
                 train_losses.append(vals)
                 last_losses = [float(x) for x in vals]
                 epoch_loss_sum += vals
@@ -322,7 +364,9 @@ def fit_multifold(
                 batches.close()
 
             log("  Running validation")
-            stats = [evaluate(models[k], cfg, aug_eval, valid_iters[k]) for k in range(k_folds)]
+            own_stats = [evaluate(models[i], cfg, aug_eval, valid_iters[i]) for i in range(len(own))]
+            stats = list(zip(gather_folds([m for m, _ in own_stats], ens, k_folds),
+                             gather_folds([sd for _, sd in own_stats], ens, k_folds)))
             avg_valid = np.array([m for m, _ in stats])
             valid_losses.append(avg_valid)
             if valid_loss_out is not None:
@@ -339,7 +383,8 @@ def fit_multifold(
                     sc.step(float(avg_valid[k]))
                 else:
                     sc.step()
-                set_lr(optimizers[k], sc.get_lr())  # what the saved param groups carry
+                if k in local:
+                    set_lr(optimizers[local[k]], sc.get_lr())  # what the saved param groups carry
             # cosine restarts follow the config alone, so all folds restart together
             restarted = lrs_is_cos and scheds[0] is not None and scheds[0].just_restarted
             if restarted:
@@ -368,18 +413,19 @@ def fit_multifold(
 
             if epoch % cfg.checkpoint_freq == 0:
                 log("  Saving fold checkpoints")
-                for k in range(k_folds):
+                for k in own:
                     save_fold(k, ck_paths[k])
                     full_src[k] = ck_paths[k]
             if cfg.save_best_valid and new_best:
                 log("  Saving best validation for folds {} (losses {})".format(
                     new_best, [round(best_valid[k], 6) for k in new_best]))
                 for k in new_best:
-                    save_or_copy(k, best_paths[k], cfg.light_best_nets)
+                    if k in local:
+                        save_or_copy(k, best_paths[k], cfg.light_best_nets)
             if restarted and cfg.save_restart_net_prefix and num_restarts >= cfg.save_after_n_restarts:
                 log("  Saving networks before restart {} to {}_specXX_{:02d}.pt".format(
                     num_restarts, cfg.save_restart_net_prefix, num_restarts - 1))
-                for k in range(k_folds):
+                for k in own:
                     path = "{}_spec{:02d}_{:02d}.pt".format(cfg.save_restart_net_prefix, pats[k], num_restarts - 1)
                     save_or_copy(k, path, cfg.light_best_nets)
 
@@ -402,10 +448,14 @@ def fit_multifold(
             elif epoch >= cfg.max_num_epochs:
                 keep_training = False
                 log("  Exiting - maximum number of epochs performed!")
+            # SIGTERM and the clock are per process: stop everywhere if any stops
+            if ens.size > 1 and agree_any(not keep_training, ens.group) and keep_training:
+                keep_training = False
+                log("  Exiting - a peer process requested termination!")
 
             if not keep_training and epoch % cfg.checkpoint_freq != 0:
                 log("    saving fold checkpoints before exit!")
-                for k in range(k_folds):
+                for k in own:
                     save_or_copy(k, ck_paths[k], light=False)
         log("Training Hours: {:.4f}".format(tot_time_hours))
         completed = True
@@ -419,10 +469,13 @@ def fit_multifold(
             for w in ws or ():
                 w.close()
         sigterm.restore()
+    if ens.size > 1:
+        barrier(ens.group)  # every process returns after every fold's files are written
 
     return {
         "models": models,
         "optimizers": optimizers,
+        "folds": own,
         "cfg": cfg,
         "epoch": epoch,
         "num_restarts": num_restarts,

@@ -14,6 +14,8 @@ import torch
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
+from deepfluoro_tpu_torch.parallel.mesh import Axis
+from deepfluoro_tpu_torch.parallel.sharding import average_gradients
 from deepfluoro_tpu_torch.train.config import TrainConfig
 
 
@@ -47,24 +49,35 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def update_step(model, optimizer, cfg: TrainConfig, prepared: dict, lr: float) -> torch.Tensor:
+def update_step(model, optimizer, cfg: TrainConfig, prepared: dict, lr: float, data: Axis = Axis()) -> torch.Tensor:
     """Forward, backward and one optimizer step on a prepared batch
-    (``prepare_batch``'s dict). Returns the detached scalar loss."""
+    (``prepare_batch``'s dict). Returns the detached scalar loss.
+
+    Over a data axis of several ranks (each with its equal slice of the
+    global batch, BatchNorm synchronized over the axis) the gradients and
+    the returned loss are the means over the axis: the gradient and loss
+    of the global batch."""
     set_lr(optimizer, lr)
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(prepared["proj"])
     loss = per_sample_losses(cfg, out, prepared["seg"], prepared.get("heats"), cfg.num_lands > 0).mean()
     loss.backward()
+    loss = average_gradients(model.parameters(), loss, data)
     optimizer.step()
     return loss.detach()
 
 
-def train_step(model, optimizer, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lr: float) -> torch.Tensor:
-    """One optimizer step on a raw device batch (projs, segs, lands).
-    Returns the detached scalar loss; nothing here waits for the device."""
+def train_step(model, optimizer, cfg: TrainConfig, aug_cfg: AugmentConfig, gen, batch, lr: float,
+               data: Axis = Axis()) -> torch.Tensor:
+    """One optimizer step on a raw device batch (projs, segs, lands): with
+    a data axis, this rank's slice of the global batch, whose augmentation
+    draws it takes from the shared stream. Returns the detached scalar
+    loss; one process waits for no device work here."""
     projs, segs, lands = batch
-    return update_step(model, optimizer, cfg, prepare_batch(aug_cfg, gen, projs, segs, lands), lr)
+    b = int(projs.shape[0])
+    prepared = prepare_batch(aug_cfg, gen, projs, segs, lands, draw_rows=(data.index * b, data.size * b))
+    return update_step(model, optimizer, cfg, prepared, lr, data)
 
 
 @torch.no_grad()

@@ -94,6 +94,10 @@ TRAINING_MODULES = [
     "deepfluoro_tpu_torch.compat.from_jax",
     "deepfluoro_tpu_torch.cli.train",
     "deepfluoro_tpu_torch.cli.train_folds",
+    "deepfluoro_tpu_torch.parallel",
+    "deepfluoro_tpu_torch.parallel.mesh",
+    "deepfluoro_tpu_torch.parallel.multihost",
+    "deepfluoro_tpu_torch.parallel.sharding",
 ]
 
 
