@@ -105,7 +105,10 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      BatchNorm buffers equal across ranks, one warp launch per step per
      rank, and each
      rank's warp pair at 5 frames against its plain version (phase 3's
-     tolerances); (c) gloo, two ranks: ``fit_multifold`` with K = 6
+     tolerances); then the same for 1 epoch at bf16 compute with remat
+     against one process with those modes, losses within 5e-3 relative
+     (the CPU tests' bf16 tolerance), BatchNorm buffers equal across ranks,
+     one warp launch per step per rank; (c) gloo, two ranks: ``fit_multifold`` with K = 6
      split 3 + 3 for 1 epoch, augmentation on (each rank draws one
      process's augmentation and keeps its folds' rows), every fold's
      losses within 1e-3 relative of one process, one warp launch per
@@ -118,25 +121,69 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      are of two ranks sharing one card; each run's peak less baseline per
      rank. The ranks start while this process runs the one-process
      references, and wait for a go file;
- 11. profiler: ``torch.profiler``'s device time of the pair at each
+ 11. JAX checkpoints and the spatial axis: (a) the committed fixture
+     ``tests/fixtures/torch_port/jax_fit_d6_wf1.msgpack`` (a checkpoint
+     the JAX package's ``fit`` wrote at depth 6, wf 1, 192^2, with
+     momentum and plateau state; ``scripts/write_jax_ckpt_fixture.py``)
+     decoded by the ``msgpack`` package (where installed) and by
+     ``compat/msgpack_lite.py`` into identical trees;
+     ``torch_checkpoint_from_jax`` bit-equal to the JAX exporter's state
+     dict and momentum buffers (the ``.npz`` beside it); the member's
+     forward on the card within 1e-4 of JAX's outputs; ``fit`` resumed
+     from the msgpack file for one epoch (deterministic cuDNN,
+     augmentation off) within 1e-3 relative of the JAX fit's per-step and
+     validation losses; the same resume with augmentation on (from a copy
+     of the conversion with the flag set), one warp launch per step;
+     ``cli/export_torch_net`` run with no JAX imported. (b)-(d): two gloo
+     ranks on ``cuda:0`` on a {'spatial': 2} mesh, deterministic cuDNN,
+     against one process: (b) one step of phase 4's 8x recipe at full
+     width (depth 6, wf 5, 192^2 from 180^2, batch 5, bands 96 + 96) from
+     ``fit``'s initial weights, augmentation off: the loss within 1e-6
+     relative of one process's, every gradient within twice one
+     process's own float32 error of its float64 step, or of 1e-5 of the
+     tensor's largest value (the row sharding is as exact as float32
+     allows), BatchNorm buffers within 1e-6; then
+     ``fit(shard_spatial=True)`` for 2 epochs, augmentation on, against
+     phase 10(a)'s one-process run: losses within 2e-3 relative over the
+     first epoch and 5e-2 over both, printed step by step beside the same
+     one-process run with cuDNN's benchmark algorithms (its own float32
+     spread: the recipe at LR 0.1 amplifies any reordering of sums, and
+     one process against itself moved 2.25e-3 in two epochs on an NVIDIA
+     H100 80GB HBM3 at 700 W),
+     BatchNorm buffers equal across ranks, one warp launch per step per
+     rank, steps/s and peak less baseline per rank; (c) the 2x rung
+     (718 -> 736, bands 384 + 352) with bf16, remat and the streamed feed
+     for one epoch, losses within 5e-3 relative of one process with the
+     same modes, one warp launch per step per rank; (d) phase 8's 1x member
+     over two raw 1536^2 frames (1440 rows, bands 736 + 704) through
+     ``fullres_batches(mesh=...)``: labels differing from one process on
+     < 0.1 % of pixels and only where its top two are within 1e-4, heats
+     within 1e-4, frames/s of both. The ranks start while this process
+     runs (a) and the one-process references;
+ 12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
 
 Any failed check raises, and the script exits non-zero without the final
 line; a rank that fails makes its phase raise. On success a line ``int8
 summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
-line ``distributed summary: {...}`` phase 10's; the line before the last
-is a JSON object describing the kernel (with its times at every geometry
-and its launches on each path: training, resume and stream, folds, 2x
-and 1x ladder training, data-parallel training and fold-sharded
-training, the last two counted by the ranks), and the last line is
+line ``distributed summary: {...}`` phase 10's and a line ``spatial
+summary: {...}`` phase 11's; the line before the last is a JSON object
+describing the kernel (with its times at every geometry and its launches
+on each path: training, resume and stream, folds, 2x and 1x ladder
+training, data-parallel training in float32 and in bf16 with remat,
+fold-sharded training, the augmented resume from the JAX checkpoint, and
+row-sharded training at 8x and at 2x, the parallel ones counted by the
+ranks), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -1620,9 +1667,10 @@ def _warp_pair_err(seed, b):
     return err
 
 
-def _rank_fit(seed, workdir, batch_size, epochs):
+def _rank_fit(seed, workdir, batch_size, epochs, **modes):
     """One rank of a data-parallel ``fit`` of the 8x recipe over a 'data'
-    mesh of every rank (process 0 writes the files)."""
+    mesh of every rank (process 0 writes the files); ``modes`` go to the
+    config (bf16 compute, remat)."""
     from deepfluoro_tpu_torch.ops import warp
     from deepfluoro_tpu_torch.parallel import make_mesh
     from deepfluoro_tpu_torch.train import fit
@@ -1631,8 +1679,9 @@ def _rank_fit(seed, workdir, batch_size, epochs):
     mesh = make_mesh({"data": torch.distributed.get_world_size()})
     baseline = _peak_start()
     warp.warp_launches = 0
-    out = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=epochs, batch_size=batch_size),
-              verbose=False, device=DEVICE, mesh=mesh, **_fit_files(workdir, "dp{}".format(batch_size)))
+    out = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=epochs, batch_size=batch_size, **modes),
+              verbose=False, device=DEVICE, mesh=mesh,
+              **_fit_files(workdir, "dp{}{}".format(batch_size, "_".join(sorted(modes)))))
     _sync()
     bn = {k: v.cpu().numpy() for k, v in out["model"].state_dict().items() if k.endswith(("running_mean", "running_var"))}
     return {"train": out["train_losses"], "valid": out["valid_losses"], "steps": len(out["train_losses"]),
@@ -1670,6 +1719,7 @@ def _rank_gloo(seed, workdir, member_paths, settings, go_file):
     _await_go(go_file)
     out = {"b": _rank_fit(seed, workdir, DIST_BATCH, 2)}
     out["b"]["warp_err"] = _warp_pair_err(seed + 11 + torch.distributed.get_rank(), DIST_BATCH // 2)
+    out["b_bf16"] = _rank_fit(seed, workdir, DIST_BATCH, 1, compute_dtype="bfloat16", remat=True)
 
     data = _smoke_data(seed)
     cfg = _recipe_cfg(data, seed, max_num_epochs=1)
@@ -1745,8 +1795,9 @@ def _labels_match(name, got, want_seg, seg_err):
 
 def phase_distributed(seed, workdir, member_paths):
     """Phase 10 (see the module docstring), with deterministic cuDNN in
-    every process. Returns the summary and the launches of the two
-    training paths, counted by the ranks."""
+    every process. Returns the summary, the launches of the training
+    paths, counted by the ranks, and the losses of (a)'s one-process run,
+    which phase 11(b) is held against."""
     try:
         _rank_setup(True)
         return _phase_distributed(seed, workdir, member_paths)
@@ -1777,7 +1828,9 @@ def _phase_distributed(seed, workdir, member_paths):
     finally:
         ranks_a.close()
         ranks_b.close()
-    return _distributed_checks(refs, a, ranks)
+    summary, launches = _distributed_checks(refs, a, ranks)
+    # phase 11(b) is held against (a)'s one-process run: its losses only
+    return summary, launches, {"a": {k: v for k, v in refs["a"].items() if k not in ("model", "optimizer")}}
 
 
 def _distributed_references(seed, workdir, member_paths):
@@ -1795,6 +1848,9 @@ def _distributed_references(seed, workdir, member_paths):
                      **_fit_files(workdir, "ref_a"))}
     cfg_b = _recipe_cfg(data, seed, max_num_epochs=2, batch_size=DIST_BATCH)
     refs["b"] = fit(data, pats, cfg_b, verbose=False, device=DEVICE, **_fit_files(workdir, "ref_b"))
+    refs["b_bf16"] = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1, batch_size=DIST_BATCH,
+                                                 compute_dtype="bfloat16", remat=True),
+                         verbose=False, device=DEVICE, **_fit_files(workdir, "ref_b_bf16"))
     refs["c"] = fit_multifold(data, FOLD_PATS, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE,
                               checkpoint_prefix=os.path.join(workdir, "rfold_ck"),
                               best_prefix=os.path.join(workdir, "rfold_best"))
@@ -1849,6 +1905,22 @@ def _distributed_checks(refs, a, ranks):
         "bn_buffers_equal": bn_equal, "steps_per_s_two_ranks_sharing_one_card": rates, "one_process_steps_per_s": one_rate,
         "peak_less_baseline": [r["peak"] for r in b], "warp_pair_max_abs_err": [r["warp_err"] for r in b]}
 
+    bb = [r["b_bf16"] for r in ranks]
+    rel = max(_fit_rel(r, refs["b_bf16"], r["steps"])[1] for r in bb)
+    bn_equal = all(np.array_equal(bb[0]["bn"][k], bb[1]["bn"][k]) for k in bb[0]["bn"])
+    rates = [len(r["step_seconds"][1:]) / sum(r["step_seconds"][1:]) for r in bb]
+    print("  (b) the same at bf16 compute with remat, 1 epoch: {} steps per rank, warp launches per rank {}, losses "
+          "within {:.2e} relative of one process with the same modes (<= 5e-3: the bf16 tolerance of the CPU tests), "
+          "BatchNorm buffers equal across ranks: {}, {} steps/s per rank, peaks less baseline {} bytes".format(
+              bb[0]["steps"], [r["launches"] for r in bb], rel, bn_equal, ["%.3f" % v for v in rates],
+              [r["peak"] for r in bb]))
+    if rel > 5e-3 or not bn_equal or any(r["launches"] != r["steps"] for r in bb):
+        raise AssertionError("phase 10(b): the two-rank bf16 + remat fit differs from one process")
+    summary["b_gloo_two_ranks_bf16_remat"] = {
+        "steps_per_rank": bb[0]["steps"], "warp_launches": [r["launches"] for r in bb], "max_rel_loss_diff": rel,
+        "bn_buffers_equal": bn_equal, "steps_per_s_two_ranks_sharing_one_card": rates,
+        "peak_less_baseline": [r["peak"] for r in bb]}
+
     c = [r["c"] for r in ranks]
     want_train, want_valid = np.array(one_c["train_losses"]), np.array(one_c["valid_losses"])
     rel = max(max(_rel(r["train"], want_train), _rel(r["valid"], want_valid)) for r in c)
@@ -1886,8 +1958,419 @@ def _distributed_checks(refs, a, ranks):
                 "seg_max_abs": seg_err, "heats_max_abs": heat_err, "label_share_differ": differ,
                 "peak_less_baseline": [r["d"][name, mode]["peak"] for r in ranks]}
     launches = {"dp_training": a["launches"] + sum(r["launches"] for r in b),
+                "dp_training_bf16_remat": sum(r["launches"] for r in bb),
                 "folds_ensemble_devices": sum(r["launches"] for r in c)}
     return summary, launches
+
+
+# phase 11: the JAX package's checkpoints and the spatial axis
+FIXTURE = "tests/fixtures/torch_port/jax_fit_d6_wf1"  # .msgpack and .npz, written by scripts/write_jax_ckpt_fixture.py
+SPATIAL_EPOCHS = 2  # phase 11(b): the 8x recipe row-sharded over two ranks
+SPATIAL_FULLRES_FRAMES = 2  # phase 11(d): raw 1x frames through the row-sharded ensemble
+# the settings a phase-11 rank takes from the parent, beside phase 10's
+SPATIAL_SETTINGS = RANK_SETTINGS + ("LADDER", "FULLRES_DIM", "FULLRES_RUNGS", "SPATIAL_EPOCHS", "SPATIAL_FULLRES_FRAMES")
+
+
+def _fixture_module():
+    """``scripts/write_jax_ckpt_fixture.py``, for its data and recipe
+    constants (it imports JAX only inside ``write``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "write_jax_ckpt_fixture.py")
+    spec = importlib.util.spec_from_file_location("write_jax_ckpt_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return type(a) is type(b) and (a == b or (a != a and b != b))
+
+
+def _phase_jax_checkpoint(seed, workdir, card):
+    """Phase 11(a); returns the warp launches of the augmented resume."""
+    from deepfluoro_tpu_torch.cli import export_torch_net
+    from deepfluoro_tpu_torch.compat import msgpack_lite, torch_checkpoint_from_jax
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train import TrainConfig, fit, load_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck_path, npz_path = os.path.join(root, FIXTURE + ".msgpack"), os.path.join(root, FIXTURE + ".npz")
+    ref = np.load(npz_path)
+    lite = msgpack_lite.read(ck_path, use_msgpack=False)
+    try:
+        pkg = msgpack_lite.read(ck_path, use_msgpack=True)
+        decoders = "msgpack {} and msgpack_lite give identical trees: {}".format(
+            ".".join(map(str, __import__("msgpack").version)), _same_tree(pkg, lite))
+        if not _same_tree(pkg, lite):
+            raise AssertionError("phase 11(a): msgpack and msgpack_lite decode the fixture differently")
+    except ImportError:
+        decoders = "the msgpack package is not installed here: msgpack_lite alone decodes it"
+    print("  (a) {} ({} bytes, JAX fit at depth 6, wf 1, 192^2, epoch {}): {}".format(
+        FIXTURE + ".msgpack", os.path.getsize(ck_path), lite["epoch"], decoders))
+
+    ck = torch_checkpoint_from_jax(ck_path)
+    sd_equal = sorted(ck["model-state-dict"]) == sorted(k[3:] for k in ref.files if k.startswith("sd/")) and all(
+        np.array_equal(v.numpy(), ref["sd/" + k]) for k, v in ck["model-state-dict"].items())
+    mom = ck["optimizer-state-dict"]["state"]
+    mom_equal = sorted(mom) == sorted(int(k[4:]) for k in ref.files if k.startswith("mom/")) and all(
+        np.array_equal(e["momentum_buffer"].numpy(), ref["mom/{}".format(i)]) for i, e in mom.items())
+    print("      torch_checkpoint_from_jax against the JAX exporter's file: state dict ({} tensors) equal bit for bit: "
+          "{}; momentum buffers ({}) equal: {}".format(len(ck["model-state-dict"]), sd_equal, len(mom), mom_equal))
+    if not (sd_equal and mom_equal):
+        raise AssertionError("phase 11(a): the converted checkpoint differs from the JAX exporter's")
+
+    model, cfg = load_net_from_checkpoint(ck_path, device=DEVICE, verbose=False)
+    with torch.no_grad():
+        seg, heats = model(torch.from_numpy(ref["forward_input"]).to(DEVICE))
+    sub = int(ref["forward_subsample"])
+    fwd_err = max(float(np.abs(seg.cpu().numpy()[:, :, ::sub, ::sub] - ref["forward_seg"]).max()),
+                  float(np.abs(heats.cpu().numpy()[:, :, ::sub, ::sub] - ref["forward_heats"]).max()))
+    print("      {} the member's forward against JAX's outputs: max |diff| {:.2e} (<= 1e-4)".format(_card(card), fwd_err))
+    if fwd_err > 1e-4:
+        raise AssertionError("phase 11(a): the loaded JAX member's forward differs from JAX's")
+    del model, seg, heats
+
+    mod = _fixture_module()
+    data = make_synthetic_data(**mod.DATA)
+    files = _fit_files(workdir, "jaxck")
+    shutil.copy(ck_path, files["checkpoint_filename"])
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = fit(data, mod.PATS, TrainConfig(**dict(mod.RECIPE, max_num_epochs=2)), verbose=False, device=DEVICE,
+                  **files)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = max(_rel(out["train_losses"], ref["resumed_train_losses"]), _rel(out["valid_losses"],
+                                                                          ref["resumed_valid_losses"]))
+    print("      {} fit resumed from the msgpack file for one epoch (deterministic cuDNN, augmentation off): {} steps, "
+          "losses within {:.2e} relative of the JAX fit's (<= 1e-3)".format(_card(card), len(out["train_losses"]), rel))
+    if rel > 1e-3 or out["epoch"] != 2:
+        raise AssertionError("phase 11(a): the resumed fit does not track the JAX fit")
+
+    # the file carries data-aug False: the same resume with augmentation on
+    # runs from a copy of its conversion with the flag set
+    aug = load_checkpoint(ck_path)
+    aug["data-aug"] = True
+    aug_files = _fit_files(workdir, "jaxck_aug")
+    torch.save(aug, aug_files["checkpoint_filename"])
+    warp.warp_launches = 0
+    out = fit(data, mod.PATS, TrainConfig(**dict(mod.RECIPE, max_num_epochs=2)), verbose=False, device=DEVICE,
+              **aug_files)
+    _sync()
+    launches, steps = warp.warp_launches, len(out["train_losses"])
+    print("      the same resume with augmentation on: {} warp launches in {} steps (1 per step), losses {}".format(
+        launches, steps, ["%.4f" % v for v in out["train_losses"]]))
+    if launches != steps or not all(math.isfinite(v) for v in out["train_losses"]):
+        raise AssertionError("phase 11(a): the augmented resume did not launch the warp kernel once per step")
+
+    out_pt = os.path.join(workdir, "exported.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_torch_net.main([ck_path, out_pt])
+    exported = torch.load(out_pt, map_location="cpu", weights_only=False)
+    same = exported.keys() == ck.keys() and all(torch.equal(v, ck["model-state-dict"][k])
+                                                for k, v in exported["model-state-dict"].items())
+    jax_loaded = any(m == "jax" or m.startswith(("jax.", "flax", "optax", "deepfluoro_tpu.")) for m in sys.modules)
+    print("      cli.export_torch_net wrote the reference .pt ({} bytes), equal to the conversion: {}; JAX imported: "
+          "{}".format(os.path.getsize(out_pt), same, jax_loaded))
+    if not same or jax_loaded:
+        raise AssertionError("phase 11(a): export_torch_net differs or imported JAX")
+    return launches
+
+
+def _spatial_step(seed, dtype=torch.float32, mesh=None):
+    """One train-mode forward and backward of the 8x recipe's loss from
+    ``fit``'s seeded initial weights on the first 5 smoke frames
+    (augmentation off), whole or row-sharded on ``mesh``'s 'spatial' axis
+    (gradients then summed over the bands): (loss, {name: float64
+    gradient}, {name: BatchNorm running buffer})."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.parallel.mesh import row_shard
+    from deepfluoro_tpu_torch.parallel.sharding import average_gradients, shard_rows
+    from deepfluoro_tpu_torch.train.config import build_model
+    from deepfluoro_tpu_torch.train.step import per_sample_losses, shard_prepared
+
+    data = _smoke_data(seed)
+    cfg = _recipe_cfg(data, seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg)
+    model.to(DEVICE, dtype)
+    b = cfg.batch_size
+    prepared = prepare_batch(AugmentConfig(num_classes=7, proj_pad_dim=TRAIN_PAD, prob_of_aug=0.0), None,
+                             *(torch.from_numpy(a[:b]).to(DEVICE) for a in (data.projs, data.segs, data.lands)))
+    prepared = {k: v.to(dtype) if torch.is_floating_point(v) else v for k, v in prepared.items()}
+    shard = None
+    if mesh is not None:
+        shard = row_shard(mesh, TRAIN_PAD, 2 ** (TRAIN_DEPTH - 1))
+        shard_rows(model, shard)
+        prepared = shard_prepared(prepared, shard)
+    model.train()
+    loss = per_sample_losses(cfg, model(prepared["proj"]), prepared["seg"], prepared["heats"], True, shard,
+                             prepared.get("target_rows", 0)).mean()
+    loss.backward()
+    loss = loss.detach()
+    if shard is not None:
+        loss = average_gradients(model.parameters(), loss, shard.joint)
+    grads = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters() if p.grad is not None}
+    bufs = {k: v.double().cpu().numpy() for k, v in model.named_buffers() if "running" in k}
+    return float(loss), grads, bufs
+
+
+def _spatial_data(seed):
+    """Phase 11(c)'s 2x frames (LADDER's 2x rung)."""
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+
+    rung, frame, pad, batch, n_frames = LADDER[0]
+    return make_synthetic_data(num_specimens=1, num_projs=n_frames, img_dim=frame, seed=seed + frame), pad, batch
+
+
+def _spatial_2x_cfg(data, seed, pad, batch):
+    return _recipe_cfg(data, seed, proj_unet_dim=pad, batch_size=batch, max_num_epochs=1, compute_dtype="bfloat16",
+                       remat=True)
+
+
+def _fullres_1x_frames(seed):
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data
+
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=SPATIAL_FULLRES_FRAMES, img_dim=FULLRES_DIM,
+                                       seed=seed + 5)[0]
+    return spec["projs"], spec["rots"]
+
+
+def _rank_spatial(seed, workdir, member_path, settings, go_file):
+    """Phase 11(b)-(d) on one of two gloo ranks sharing the card, on a
+    {'spatial': 2} mesh."""
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.parallel import make_mesh
+    from deepfluoro_tpu_torch.train import fit
+
+    _rank_setup(True, settings)
+    _await_go(go_file)
+    mesh = make_mesh({"spatial": 2})
+    rank = torch.distributed.get_rank()
+    loss, grads, bufs = _spatial_step(seed, mesh=mesh)
+    out = {"step": (loss, grads if rank == 0 else None, bufs)}
+    del grads
+    data = _smoke_data(seed)
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    res = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=SPATIAL_EPOCHS), verbose=False,
+              device=DEVICE, mesh=mesh, shard_spatial=True, **_fit_files(workdir, "sp8x"))
+    _sync()
+    bn = {k: v.cpu().numpy() for k, v in res["model"].state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    out["b"] = {"train": res["train_losses"], "valid": res["valid_losses"], "steps": len(res["train_losses"]),
+                "launches": warp.warp_launches, "step_seconds": res["step_seconds"], "peak": _peak_since(baseline),
+                "bn": bn}
+    del res
+
+    data2x, pad, batch = _spatial_data(seed)
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    res = fit(data2x, [1], _spatial_2x_cfg(data2x, seed, pad, batch), verbose=False, device=DEVICE, mesh=mesh,
+              shard_spatial=True, stream_data=True, **_fit_files(workdir, "sp2x"))
+    _sync()
+    out["c"] = {"train": res["train_losses"], "valid": res["valid_losses"], "steps": len(res["train_losses"]),
+                "launches": warp.warp_launches, "step_seconds": res["step_seconds"], "peak": _peak_since(baseline)}
+    del res, data2x
+
+    projs, rots = _fullres_1x_frames(seed)
+    model, mcfg = load_net_from_checkpoint(member_path, device=DEVICE, verbose=False)
+    baseline = _peak_start()
+    times = []
+    got = list(fullres_batches(lambda i0, i1: (projs[i0:i1], rots[i0:i1]), len(projs), projs.shape[1:], [model], 1,
+                               model.num_lands, times, len(projs), mcfg.proj_unet_dim, mesh=mesh))
+    out["d"] = {"batches": got if rank == 0 else None, "fps": len(times) / sum(times), "peak": _peak_since(baseline)}
+    return out
+
+
+def _spatial_references(seed, workdir, member_path, refs):
+    """The one-process runs phase 11's ranks are held against: (b) phase
+    10's reference of the 8x recipe (2 epochs, batch 5, deterministic); (c)
+    the 2x rung with bf16, remat and the streamed feed for one epoch; (d)
+    the 1x member over the raw frames, timed."""
+    from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
+    from deepfluoro_tpu_torch.infer import ensemble_forward, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.train import fit
+
+    out = {"b": refs["a"], "step32": _spatial_step(seed), "step64": _spatial_step(seed, torch.float64)}
+    if SPATIAL_EPOCHS != 2:
+        data = _smoke_data(seed)
+        out["b"] = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=SPATIAL_EPOCHS), verbose=False,
+                       device=DEVICE, **_fit_files(workdir, "ref_sp8x"))
+    data2x, pad, batch = _spatial_data(seed)
+    out["c"] = fit(data2x, [1], _spatial_2x_cfg(data2x, seed, pad, batch), verbose=False, device=DEVICE,
+                   stream_data=True, **_fit_files(workdir, "ref_sp2x"))
+    projs, rots = _fullres_1x_frames(seed)
+    model, mcfg = load_net_from_checkpoint(member_path, device=DEVICE, verbose=False)
+    times = []
+    out["d"] = list(fullres_batches(lambda i0, i1: (projs[i0:i1], rots[i0:i1]), len(projs), projs.shape[1:], [model],
+                                    1, model.num_lands, times, len(projs), mcfg.proj_unet_dim))
+    out["d_fps"] = len(times) / sum(times)
+    prep, hw = make_fullres_prep(1, mcfg.proj_unet_dim, projs.shape[1:])
+    with torch.no_grad():
+        seg = ensemble_forward([model], prep(torch.from_numpy(projs).to(DEVICE), torch.from_numpy(rots).to(DEVICE)),
+                               hw, model.num_lands)[0]
+        top2 = torch.topk(seg, 2, dim=1).values
+    out["d_margin"] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return out
+
+
+def _benchmark_fit(seed, workdir):
+    """Phase 4's recipe for SPATIAL_EPOCHS epochs in one process with
+    ``cudnn.benchmark`` (fastest algorithms, not deterministic), the
+    losses for (b)'s float32 spread."""
+    from deepfluoro_tpu_torch.train import fit
+
+    data = _smoke_data(seed)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True
+    try:
+        out = fit(data, [2, 3, 4, 5, 6], _recipe_cfg(data, seed, max_num_epochs=SPATIAL_EPOCHS), verbose=False,
+                  device=DEVICE, **_fit_files(workdir, "spread"))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    return {"train": out["train_losses"], "valid": out["valid_losses"]}
+
+
+def phase_spatial(seed, workdir, member_path, refs, card):
+    """Phase 11 (see the module docstring), with deterministic cuDNN in
+    every process of (b)-(d). Returns (summary, launches per path)."""
+    from deepfluoro_tpu_torch.parallel.multihost import Ranks
+
+    settings = {k: globals()[k] for k in SPATIAL_SETTINGS}
+    go = os.path.join(workdir, "go_spatial")
+    t0 = time.perf_counter()
+    ranks = Ranks(_rank_spatial, 2, args=(seed, workdir, member_path, settings, go), device=DEVICE, backend="gloo")
+    try:
+        launches = {"jax_checkpoint_resume": _phase_jax_checkpoint(seed, workdir, card)}
+        _rank_setup(True)
+        try:
+            one = _spatial_references(seed, workdir, member_path, refs)
+        finally:
+            _rank_setup(False)
+        print("  (a) and the one-process references while the ranks start: {:.1f} s".format(time.perf_counter() - t0))
+        t1 = time.perf_counter()
+        open(go, "w").close()
+        # while the ranks run: how far one process's own float32 trajectory
+        # moves when only cuDNN's choice of algorithms changes
+        one["spread"] = _benchmark_fit(seed, workdir)
+        got = ranks.results(timeout=900)
+        print("  (b)-(d) ran {:.1f} s after their go".format(time.perf_counter() - t1))
+    finally:
+        ranks.close()
+    summary, more = _spatial_checks(one, got, card)
+    launches.update(more)
+    return summary, launches
+
+
+def _spatial_checks(one, ranks, card):
+    summary = {}
+    loss_sp, g_sp, bufs_sp = ranks[0]["step"]
+    loss_32, g_32, bufs_32 = one["step32"]
+    g_64 = one["step64"][1]
+    step_rel = abs(loss_sp - loss_32) / abs(loss_32)
+    # per tensor: the bands' float32 gradient against float64, over one
+    # process's float32 gradient against float64 (a floor of 1e-5 of the
+    # tensor's largest value: float32's rounding of a sum)
+    ratio = max((np.abs(g_sp[k] - g_64[k]).max() / max(np.abs(g_32[k] - g_64[k]).max(), 1e-5 * np.abs(g_64[k]).max()),
+                 k) for k in g_64)
+    buf_err = max(float(np.abs(r["step"][2][k] - bufs_32[k]).max()) for r in ranks for k in bufs_32)
+    print("  (b) {} one step of the 8x recipe at full width from fit's initial weights (5 frames, augmentation off), "
+          "row-sharded {} against one process: loss within {:.2e} relative (<= 1e-6); every gradient as close "
+          "to one process's float64 step as one process's float32 step is: the worst ratio of the two errors {:.3f} "
+          "({}; <= 2); BatchNorm running buffers within {:.2e} (<= 1e-6)".format(
+              _card(card), _bands(TRAIN_PAD), step_rel, ratio[0], ratio[1], buf_err))
+    if step_rel > 1e-6 or ratio[0] > 2.0 or buf_err > 1e-6:
+        raise AssertionError("phase 11(b): the row-sharded step is not as exact as one process's float32 step")
+
+    b = [r["b"] for r in ranks]
+    want = one["b"]
+    epoch = b[0]["steps"] // SPATIAL_EPOCHS
+    first, rel = (max(v) for v in zip(*(_fit_rel(r, want, epoch) for r in b)))
+    spread_first, spread = _fit_rel(one["spread"], want, epoch)
+    want_b = np.asarray(want["train_losses"], np.float64)
+    per_step = np.max([np.abs(np.asarray(r["train"], np.float64) - want_b) / np.abs(want_b) for r in b], axis=0)
+    spread_step = np.abs(np.asarray(one["spread"]["train"], np.float64) - want_b) / np.abs(want_b)
+    bn_equal = all(np.array_equal(b[0]["bn"][k], b[1]["bn"][k]) for k in b[0]["bn"])
+    rates = [len(r["step_seconds"][1:]) / sum(r["step_seconds"][1:]) for r in b]
+    print("  (b) {} gloo, two ranks sharing one card, {{'spatial': 2}}: fit on the 8x recipe (depth {}, wf {}, {}^2 "
+          "from {}^2, batch 5) row-sharded {}, {} epochs, augmentation on: {} steps per rank, warp launches per "
+          "rank {} (1 per step), losses against one process (deterministic cuDNN): first epoch within {:.2e} "
+          "relative (<= 2e-3), all {:.2e} (<= 5e-2), per step {}; one process with cuDNN's benchmark algorithms "
+          "against the same run: first epoch {:.2e}, all {:.2e}, per step {}; BatchNorm buffers equal across ranks: "
+          "{}, {} steps/s per rank (two ranks sharing one card), peaks less baseline {} bytes".format(
+              _card(card), TRAIN_DEPTH, TRAIN_WF, TRAIN_PAD, TRAIN_FRAME, _bands(TRAIN_PAD), SPATIAL_EPOCHS,
+              b[0]["steps"], [r["launches"] for r in b], first, rel, ["%.1e" % v for v in per_step],
+              spread_first, spread, ["%.1e" % v for v in spread_step], bn_equal, ["%.3f" % v for v in rates],
+              [r["peak"] for r in b]))
+    if first > 2e-3 or rel > 5e-2 or not bn_equal or any(r["launches"] != r["steps"] for r in b):
+        raise AssertionError("phase 11(b): the row-sharded fit differs from one process")
+    summary["b_spatial_8x"] = {"step_loss_rel": step_rel, "step_grad_error_ratio": float(ratio[0]),
+                               "step_buffer_max_abs": buf_err, "steps_per_rank": b[0]["steps"],
+                               "warp_launches": [r["launches"] for r in b],
+                               "max_rel_loss_diff_first_epoch": first, "max_rel_loss_diff": rel,
+                               "rel_loss_diff_per_step": per_step.tolist(),
+                               "benchmark_spread_first_epoch": spread_first, "benchmark_spread": spread,
+                               "benchmark_spread_per_step": spread_step.tolist(),
+                               "bn_buffers_equal": bn_equal, "steps_per_s_two_ranks_sharing_one_card": rates,
+                               "peak_less_baseline": [r["peak"] for r in b]}
+
+    c = [r["c"] for r in ranks]
+    rel = max(max(_rel(r["train"], one["c"]["train_losses"]), _rel(r["valid"], one["c"]["valid_losses"])) for r in c)
+    rates = [len(r["step_seconds"][1:]) / max(sum(r["step_seconds"][1:]), 1e-9) for r in c]
+    _, frame, pad, batch, _ = LADDER[0]
+    print("  (c) {} 2x rung row-sharded over two ranks ({}^2 from {}^2, bands {}), bf16 + remat + streamed feed, "
+          "batch {}, 1 epoch: {} steps per rank, warp launches per rank {}, losses within {:.2e} relative of one "
+          "process with the same modes (<= 5e-3), {} steps/s per rank, peaks less baseline {} bytes".format(
+              _card(card), pad, frame, _bands(pad), batch, c[0]["steps"], [r["launches"] for r in c], rel,
+              ["%.3f" % v for v in rates], [r["peak"] for r in c]))
+    if rel > 5e-3 or any(r["launches"] != r["steps"] for r in c):
+        raise AssertionError("phase 11(c): the row-sharded 2x fit differs from one process")
+    summary["c_spatial_2x"] = {"steps_per_rank": c[0]["steps"], "warp_launches": [r["launches"] for r in c],
+                               "max_rel_loss_diff": rel, "steps_per_s_two_ranks_sharing_one_card": rates,
+                               "peak_less_baseline": [r["peak"] for r in c]}
+
+    got, want = ranks[0]["d"]["batches"], one["d"]
+    labels_g = np.concatenate([l for _, l, _ in got])
+    labels_w = np.concatenate([l for _, l, _ in want])
+    heats_g = np.concatenate([h for _, _, h in got])
+    heats_w = np.concatenate([h for _, _, h in want])
+    heat_err = float(np.abs(heats_g - heats_w).max())
+    mask = labels_g != labels_w
+    differ = float(mask.mean())
+    worst = float(one["d_margin"][mask].max()) if mask.any() else 0.0
+    pad1x = FULLRES_RUNGS[-1][2]
+    print("  (d) {} 1x full-res inference row-sharded over two ranks ({} raw {}^2 frames, {}^2 padded, bands {}): "
+          "labels differ from one process on {:.4%} of pixels (< 0.1 %), where one process's top two are at most "
+          "{:.2e} apart (near-ties: <= 1e-4), heats within {:.2e} (<= 1e-4); {:.3f} frames/s (two ranks sharing one "
+          "card) against {:.3f} for one process; peaks less baseline {} bytes".format(
+              _card(card), SPATIAL_FULLRES_FRAMES, FULLRES_DIM, pad1x, _bands(pad1x), differ, worst, heat_err,
+              ranks[0]["d"]["fps"], one["d_fps"], [r["d"]["peak"] for r in ranks]))
+    if labels_g.shape != labels_w.shape or differ >= 1e-3 or worst > 1e-4 or heat_err > 1e-4:
+        raise AssertionError("phase 11(d): the row-sharded full-res inference differs from one process")
+    summary["d_spatial_fullres_1x"] = {"label_share_differ": differ, "heats_max_abs": heat_err,
+                                       "frames_per_s_two_ranks_sharing_one_card": ranks[0]["d"]["fps"],
+                                       "one_process_frames_per_s": one["d_fps"],
+                                       "peak_less_baseline": [r["d"]["peak"] for r in ranks]}
+    return summary, {"spatial_training": sum(r["launches"] for r in b),
+                     "spatial_2x_training": sum(r["launches"] for r in c)}
+
+
+def _bands(rows):
+    from deepfluoro_tpu_torch.parallel.mesh import row_layout
+
+    return "+".join(str(r) for r in row_layout(rows, 2, 2 ** (TRAIN_DEPTH - 1)))
 
 
 def main(argv=None) -> int:
@@ -1912,7 +2395,10 @@ def main(argv=None) -> int:
             ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"], results["1 environment"])),
             ("9 int8", lambda: phase_int8(args.seed, results["5 inference"], results["1 environment"])),
             ("10 distributed", lambda: phase_distributed(args.seed, workdir, results["5 inference"])),
-            ("11 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
+            ("11 JAX checkpoints and spatial", lambda: phase_spatial(
+                args.seed, workdir, os.path.join(workdir, "fullres_1x.pt"), results["10 distributed"][2],
+                results["1 environment"])),
+            ("12 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
         for name, fn in phases:
@@ -1932,12 +2418,14 @@ def main(argv=None) -> int:
         "ladder_2x_training": results["8 ladder"]["2x"],
         "ladder_1x_training": results["8 ladder"]["1x"],
         **results["10 distributed"][1],
+        **results["11 JAX checkpoints and spatial"][1],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
     int8 = results["9 int8"]
     print("int8 summary: " + json.dumps({k: int8[k] for k in ("fps", "peak", "phase_peak", "gemm_launches",
                                                                "convs_total", "int8_float_label_agreement")}))
     print("distributed summary: " + json.dumps(results["10 distributed"][0]))
+    print("spatial summary: " + json.dumps(results["11 JAX checkpoints and spatial"][0]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -26,7 +26,14 @@ Data parallelism, one process per card (``train/loop.py::fit``'s mesh):
 runs the same command, with ``--num-processes P --process-id p
 --coordinator host:port`` where ``torchrun`` does not set them; the data
 axis then spans all P processes. NCCL joins them on CUDA, gloo on the
-CPU. Not ported: ``--spatial-devices`` and ``--tp-devices``.
+CPU.
+
+``--spatial-devices S`` cuts every frame's rows into S bands, one per
+card, for the large rungs (``fit(shard_spatial=True)``); it composes with
+``--dp-devices D`` on one {'data': D, 'spatial': S} mesh of D * S
+processes (``--dp-devices 0``: every card left over). ``--tp-devices``
+(tensor parallelism) is not ported and is refused, alone and with
+``--spatial-devices`` (the JAX package refuses that composition).
 """
 
 from __future__ import annotations
@@ -92,6 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", help="Write a torch.profiler trace (TensorBoard-loadable) to this directory", type=str, default="")
     p.add_argument("--debug-nans", help="Fault on the first NaN-producing backward op (torch.autograd.set_detect_anomaly)", action="store_true")
     p.add_argument("--dp-devices", help="shard each batch over this many devices (data parallelism, one process per card); 0 = all devices when any parallel flag is active, 1 = off", type=int, default=1)
+    p.add_argument("--spatial-devices", help="also shard image rows over this many devices (for large-resolution training); composes with --dp-devices on one 2-D mesh", type=int, default=1)
+    p.add_argument("--tp-devices", help="tensor parallelism: not ported; any value above 1 is refused", type=int, default=1)
     p.add_argument("--num-processes", help="total process count for multi-host training; run one process per card with the same flags", type=int, default=0)
     p.add_argument("--process-id", help="this process's index in [0, --num-processes)", type=int, default=None)
     p.add_argument("--coordinator", help="multi-host coordinator address host:port (torch.distributed's TCP store on process 0)", type=str, default=None)
@@ -100,21 +109,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.tp_devices > 1:
+        raise SystemExit("--tp-devices is not ported (tensor parallelism); {}".format(
+            "nor does it compose with --spatial-devices" if args.spatial_devices > 1 else "use --dp-devices or "
+            "--spatial-devices"))
+    if args.spatial_devices < 1:
+        raise SystemExit("--spatial-devices must be at least 1, got {}".format(args.spatial_devices))
     device = "cpu" if args.no_gpu else "cuda"
-    n_local = local_device_count(device) if args.dp_devices <= 0 else args.dp_devices
-    launch(run, args, n_local, args.num_processes, args.process_id, args.coordinator, device)
+    sp = args.spatial_devices
+    dp = max(1, local_device_count(device) // sp) if args.dp_devices <= 0 else args.dp_devices
+    launch(run, args, dp * sp, args.num_processes, args.process_id, args.coordinator, device)
 
 
 def run(args):
-    """Train on this process (one rank of a data-parallel group when there
-    are several processes)."""
+    """Train on this process (one rank of a data-parallel or a data x
+    spatial group when there are several processes)."""
     world = process_count()
+    sp = args.spatial_devices
     mesh = None
-    if world > 1:
-        if args.dp_devices not in (0, 1, world):
-            raise SystemExit("--dp-devices {} must equal the process count {}: the port runs one process per "
-                             "card".format(args.dp_devices, world))
-        mesh = make_mesh({"data": world})
+    if world > 1 or sp > 1:
+        if world % sp:
+            raise SystemExit("--spatial-devices {} does not divide the process count {}".format(sp, world))
+        dp = world // sp
+        # --dp-devices 1 (the default) stands for every process under
+        # torchrun or the process flags, as before; beside --spatial-devices
+        # it means one data slice
+        if args.dp_devices not in (0, dp) and not (args.dp_devices == 1 and (sp == 1 or dp == 1)):
+            raise SystemExit("--dp-devices {} x --spatial-devices {} must equal the process count {}: the port runs "
+                             "one process per card".format(args.dp_devices, sp, world))
+        mesh = make_mesh({"data": dp, "spatial": sp} if sp > 1 else {"data": world})
         if is_writer():
             print("device mesh: {}".format(mesh.axes), flush=True)
     train_pats = [int(i) for i in args.train_pats.split(",")]
@@ -183,6 +206,7 @@ def run(args):
             stream_data=args.stream_data,
             device="cpu" if args.no_gpu else "cuda",
             mesh=mesh,
+            shard_spatial=sp > 1,
         )
 
 

@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from deepfluoro_tpu_torch.ops.image import center_crop, reflect_pad_to, znorm
+from deepfluoro_tpu_torch.ops.image import calc_pad_amount, center_crop, reflect_pad_to, znorm
 from deepfluoro_tpu_torch.utils.platform import get_device
 
 BORDER_CROP_PX = 50  # README.md:84
@@ -287,17 +287,73 @@ def make_fused_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, apply
     return infer
 
 
+def fullres_shard(model, mesh, ds_factor: int, pad_dim: int, full_hw):
+    """This process's band (``parallel/mesh.py::RowShard``) of the padded
+    network input at ``ds_factor`` on ``mesh``'s 'spatial' axis, with
+    ``model``'s convolutions set to it (``parallel/sharding.py::
+    shard_rows``); ValueError where the frame does not cut into bands of
+    whole coarsest-level blocks. Returns (shard, (hc, wc))."""
+    from deepfluoro_tpu_torch.parallel.mesh import row_shard
+    from deepfluoro_tpu_torch.parallel.sharding import shard_rows
+
+    hc, wc = fullres_crop_size(ds_factor, tuple(int(v) for v in full_hw))
+    rows = hc + 2 * calc_pad_amount(pad_dim, hc) if pad_dim > hc else hc
+    shard = row_shard(mesh, rows, 2 ** (len(model.down_path) - 1))
+    shard_rows(model, shard)
+    return shard, (hc, wc)
+
+
+def make_sharded_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, mesh, apply_fn=None):
+    """``make_fused_fullres_infer`` over a mesh of 'data' and 'spatial'
+    processes (JAX: ``make_sharded_fullres_infer``, where GSPMD partitions
+    the program): each process takes its data slice of the frames, runs
+    the raw-frame prep on them whole (crop, log, rot-180, resize, pad,
+    z-norm: a small share of the work, and the rot-180 and the resize mix
+    rows), keeps its band of rows and runs ``model`` (eval mode, its
+    convolutions set to the band: ``fullres_shard``) with halo exchanges;
+    the argmax is row-local. The labels and the raw heats are gathered, so
+    every process returns the whole batch: same contract as
+    ``make_fused_fullres_infer``. The batch size must divide by the 'data'
+    axis. ``apply_fn`` (int8 forwards) is not supported on a 'spatial'
+    mesh yet: NotImplementedError."""
+    if apply_fn is not None:
+        raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
+                                  "'--int8 under the spatial axis')")
+    from deepfluoro_tpu_torch.parallel.sharding import gather_bands
+
+    prep, _ = make_fullres_prep(ds_factor, pad_dim, full_hw)
+    shard, crop_hw = fullres_shard(model, mesh, ds_factor, pad_dim, full_hw)
+    data = mesh.axis("data")
+
+    @torch.no_grad()
+    def infer(projs: torch.Tensor, rot_flags: torch.Tensor):
+        b = int(projs.shape[0])
+        local = data.rows(b)
+        out = model(prep(projs[local], rot_flags[local])[:, :, shard.start : shard.stop])
+        seg, heats = out if isinstance(out, tuple) else (out, None)
+        labels = shard.crop(seg, crop_hw).argmax(dim=1).to(torch.int32)
+        labels = gather_bands(labels, shard, local, b, crop_hw).to(torch.uint8)
+        return labels, None if heats is None else gather_bands(shard.crop(heats, crop_hw), shard, local, b, crop_hw)
+
+    return infer
+
+
 def make_quantized_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, calib_projs, calib_rot_flags,
-                                 float_levels: int = 0):
+                                 float_levels: int = 0, mesh=None):
     """The int8 variant of ``make_fused_fullres_infer``: activation scales
     calibrated on ``calib_projs`` ((B, H_full, W_full) raw frames, B >= 1,
     on the model's device) and ``calib_rot_flags`` run through the same
     prep, weights quantized per output channel (the JAX docstring says per
     tensor; its code, like this, quantizes per channel), and the U-Net's
     convolutions int8 (``infer/quantized.py``), the finest
-    ``float_levels`` levels in float. Same return contract."""
+    ``float_levels`` levels in float. Same return contract. A ``mesh``
+    (JAX: the sharded int8 program) is not ported yet:
+    NotImplementedError."""
     from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
+    if mesh is not None:
+        raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
+                                  "'--int8 under the spatial axis')")
     if calib_projs.ndim != 3 or calib_projs.shape[0] < 1:
         raise ValueError("int8 calibration needs at least one (B, H, W) raw frame; got shape {}".format(
             tuple(calib_projs.shape)))

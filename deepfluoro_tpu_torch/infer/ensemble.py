@@ -28,7 +28,9 @@ member sums of the seg and heats are summed over all processes and
 divided by the total K, and process 0 writes the file (JAX:
 ``parallel/sharding.py::make_sharded_ensemble_forward``, its int8 twin).
 
-Not ported: loading the JAX package's msgpack checkpoints.
+Members load from the port's and the reference's ``.pt`` files and from
+the JAX package's msgpack checkpoints (``train/checkpoint.py::
+load_checkpoint``), with no JAX installed.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
 from deepfluoro_tpu_torch.parallel.multihost import is_writer, process_count
 from deepfluoro_tpu_torch.parallel.sharding import sum_over
+from deepfluoro_tpu_torch.train.checkpoint import is_torch_checkpoint, load_checkpoint
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.utils.platform import get_device
 
@@ -61,7 +64,8 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     reference test_ensemble.py:61-107): the port's own checkpoints and the
     reference's ``train.py`` files share the ``.pt`` layout, as do those
     the JAX package's ``compat/torch_import.py::export_torch_checkpoint``
-    writes. The model is in eval mode on ``device`` (default CUDA), at
+    writes; the JAX package's own msgpack checkpoints are converted to it
+    on load (``compat/from_jax.py::torch_checkpoint_from_jax``). The model is in eval mode on ``device`` (default CUDA), at
     the checkpoint's compute dtype and remat setting, as the JAX loader's
     ``build_model(cfg)`` builds it.
 
@@ -72,12 +76,13 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     is loaded in full, as the reference and the JAX package load it: load
     only files you trust."""
     dev = get_device(device)
-    ck = torch.load(path, map_location="cpu", weights_only=False)
+    jax_file = not is_torch_checkpoint(path)
+    ck = load_checkpoint(path, weights_only=False)
     meta = {k: v for k, v in ck.items() if not k.endswith("state-dict") and k != "loss"}
     cfg = TrainConfig.from_checkpoint_meta(meta)
     sd = ck["model-state-dict"]
     if verbose:
-        print("  loading unet params from torch (reference) checkpoint...")
+        print("  loading unet params from {} checkpoint...".format("JAX (msgpack)" if jax_file else "torch (reference)"))
         print("             num. classes: {}".format(cfg.num_classes))
         print("                    depth: {}".format(cfg.depth))
         print("        init. feats. exp.: {}".format(cfg.init_feats_exp))

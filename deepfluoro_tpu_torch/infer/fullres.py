@@ -30,8 +30,12 @@ import time
 import numpy as np
 import torch
 
-from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, make_fullres_prep
+import torch.distributed as dist
+
+from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, fullres_shard, make_fullres_prep
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
+from deepfluoro_tpu_torch.parallel.multihost import is_writer
+from deepfluoro_tpu_torch.parallel.sharding import gather_bands
 
 
 def list_fullres_frames(src, specimens=None):
@@ -75,6 +79,7 @@ def fullres_batches(
     pad_img_dim: int = 0,
     quantized: bool = False,
     int8_float_levels: int = 0,
+    mesh=None,
 ):
     """A generator of ``(start, labels (b, h, w) uint8, heats (b, L, h, w)
     float32 or None)`` numpy batches of the ensemble over ``n`` raw frames,
@@ -92,7 +97,14 @@ def fullres_batches(
     With ``quantized`` the forwards are int8 (the finest
     ``int8_float_levels`` levels in float), with activation scales
     calibrated here, before the generator starts, on the first
-    ``min(batch_size, n)`` frames through the same prep."""
+    ``min(batch_size, n)`` frames through the same prep.
+
+    With a ``mesh`` of 'data' and 'spatial' axes every process calls this
+    in lockstep with the whole ensemble and reads the same frames; each
+    runs its data slice of every batch (the batch size must divide by the
+    'data' axis) on its band of rows (the module docstring). Process 0
+    yields the arrays; the others yield (start, None, None). The members'
+    convolutions stay set to the bands."""
     if n == 0:
         raise ValueError("no projections selected")
     hc = fullres_crop_size(ds_factor, full_hw)[0]
@@ -106,6 +118,19 @@ def fullres_batches(
     dev = next(models[0].parameters()).device
     for model in models:
         model.eval()
+    if mesh is not None:
+        if quantized:
+            raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
+                                      "'--int8 under the spatial axis')")
+        if set(mesh.axis_names) - {"data", "spatial"}:
+            raise ValueError("full-res inference shards over 'data' and 'spatial' axes only; got {}".format(mesh.axes))
+        if batch_size % mesh.axis("data").size:
+            raise ValueError("batch size {} does not shard evenly over the {}-way 'data' mesh axis".format(
+                batch_size, mesh.axis("data").size))
+        for model in models:
+            shard, _ = fullres_shard(model, mesh, ds_factor, pad_img_dim, full_hw)
+        run = _sharded_run(models, prep, orig_hw, num_lands, mesh, shard)
+        return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size, is_writer())
     fwds = models
     if quantized:
         from deepfluoro_tpu_torch.infer.quantized import int8_forwards
@@ -113,12 +138,57 @@ def fullres_batches(
         projs, rots = read_batch(0, batch_size)
         fwds = int8_forwards(models, [prep(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))],
                              int8_float_levels)
-    return _batches(read_batch, n, tuple(full_hw), fwds, dev, prep, orig_hw, num_lands, times, batch_size)
 
-
-def _batches(read_batch, n, full_hw, fwds, dev, prep, orig_hw, num_lands, times, batch_size):
     def run(projs, rots):
-        return ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
+        _, heats, labels = ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
+        return labels, heats
+
+    return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size)
+
+
+def _band_member_mean(models, x, shard, orig_hw, num_lands: int):
+    """The member means of one band's rows of the crop: softmax seg and
+    heats min-max normalized per image over the whole frame (the band
+    minima and maxima reduced over 'spatial')."""
+    seg_sum = heat_sum = None
+    for model in models:
+        out = model(x)
+        seg, heats = out if num_lands > 0 else (out, None)
+        seg = shard.crop(seg, orig_hw)
+        seg_sum = seg if seg_sum is None else seg_sum + seg
+        if heats is not None:
+            heats = shard.crop(heats, orig_hw)
+            ext = torch.cat([heats.amax(dim=(1, 2, 3)), -heats.amin(dim=(1, 2, 3))])
+            if shard.axis.size > 1:
+                dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=shard.axis.group)
+            b = heats.shape[0]
+            hmax, hmin = ext[:b, None, None, None], -ext[b:, None, None, None]
+            heats = (heats - hmin) / (hmax - hmin)
+            heat_sum = heats if heat_sum is None else heat_sum + heats
+    k = len(models)
+    return seg_sum / k, None if heat_sum is None else heat_sum / k
+
+
+def _sharded_run(models, prep, orig_hw, num_lands, mesh, shard):
+    """``run(projs, rots) -> (labels, heats)`` of the whole batch on every
+    process: this process's data slice and band, gathered."""
+    data = mesh.axis("data")
+
+    def run(projs, rots):
+        b = int(projs.shape[0])
+        local = data.rows(b)
+        x = prep(projs[local], rots[local])[:, :, shard.start : shard.stop]
+        seg, heats = _band_member_mean(models, x, shard, orig_hw, num_lands)
+        labels = gather_bands(seg.argmax(dim=1).to(torch.int32), shard, local, b, orig_hw).to(torch.uint8)
+        return labels, None if heats is None else gather_bands(heats, shard, local, b, orig_hw)
+
+    return run
+
+
+@torch.no_grad()
+def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
+    """Drive ``run(projs, rots) -> (labels, heats)`` over the frames (the
+    generator ``fullres_batches`` returns)."""
 
     def sync():
         if dev.type == "cuda":
@@ -136,12 +206,15 @@ def _batches(read_batch, n, full_hw, fwds, dev, prep, orig_hw, num_lands, times,
             projs = np.concatenate([projs, np.repeat(projs[-1:], pad, axis=0)])
             rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
         t0 = time.perf_counter()
-        _, avg_heats, labels = run(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))
+        labels, heats = run(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))
         sync()
         elapsed = time.perf_counter() - t0
         if times is not None:
             times.extend([elapsed / real_b] * real_b)
-        yield i0, labels[:real_b].cpu().numpy(), None if avg_heats is None else avg_heats[:real_b].cpu().numpy()
+        if not writer:
+            yield i0, None, None
+            continue
+        yield i0, labels[:real_b].cpu().numpy(), None if heats is None else heats[:real_b].cpu().numpy()
 
 
 def seg_fullres_dataset(

@@ -33,6 +33,17 @@ BatchNorm statistics, softmax and heatmaps, as the JAX package's
 backward (``torch.utils.checkpoint``), as its ``nn.remat`` per block; the
 recompute moves no BatchNorm running statistic, as flax discards the
 recomputed ``batch_stats``.
+
+Row sharding (``parallel/sharding.py::shard_rows``, set like the
+BatchNorm group): the model then runs on one band of rows of each frame,
+and every 3x3 convolution (``Conv3x3``) takes a one-row halo from the
+neighbouring bands (``parallel/halo.py``), filled at the frame's edges
+by its padding mode, pads its columns here and convolves unpadded. The
+residual 1x1s, the 2x2 stride-2 downsamplings and the transposed
+upsamplings are row-local as long as every band starts on a block of the
+coarsest level (``parallel/mesh.py::row_layout``). Under remat the
+recompute trades the halos again, in the same order on every band; under
+bfloat16 a halo travels in its activation's dtype.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ from torch.utils.checkpoint import checkpoint
 
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.parallel import sharding
+from deepfluoro_tpu_torch.parallel.halo import sharded_conv2d
+from deepfluoro_tpu_torch.parallel.mesh import Axis
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -63,11 +76,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``n_last`` is the global count, and the running statistics take
     torch's update with it, so every rank's buffers stay equal and the
     correction gives flax's. ``nn.SyncBatchNorm`` is not used: its running
-    variance keeps the n/(n-1) factor the correction removes."""
+    variance keeps the n/(n-1) factor the correction removes. On
+    row-sharded frames ``counts`` holds the frame rows of each rank of the
+    group, which weigh their statistics."""
 
     n_last = 0
     recomputing = False
     group = None
+    counts = ()
 
     def forward(self, x):
         if self.training:
@@ -83,7 +99,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _synchronized(self, x):
         with torch.no_grad():
-            mean, var, n = sharding.global_batch_stats(x, self.group)
+            mean, var, n = sharding.global_batch_stats(x, self.group, self.counts)
             self.n_last = n
             if not self.recomputing:
                 self.running_mean.lerp_(mean.float(), self.momentum)
@@ -93,8 +109,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         return sharding.SyncBatchNormFn.apply(x, self.weight, self.bias, mean.float(), invstd, n, self.group)
 
 
+class Conv3x3(nn.Conv2d):
+    """torch's 3x3 Conv2d (same parameters and state_dict keys); over a
+    'spatial' axis of several bands (``spatial``, set by ``parallel/
+    sharding.py::shard_rows``) it convolves this rank's band of rows with
+    a one-row halo of its neighbours."""
+
+    spatial = Axis()
+
+    def forward(self, x):
+        if self.spatial.size == 1:
+            return super().forward(x)
+        return sharded_conv2d(x, self.weight, self.bias, self.spatial, self.padding_mode)
+
+
 def _conv3x3(in_size: int, out_size: int, padding: bool, pad_mode: str) -> nn.Conv2d:
-    return nn.Conv2d(in_size, out_size, kernel_size=3, padding=int(padding), padding_mode=pad_mode)
+    return Conv3x3(in_size, out_size, kernel_size=3, padding=int(padding), padding_mode=pad_mode)
 
 
 class UNetConvBlock(nn.Module):

@@ -21,6 +21,7 @@ the caller names it. Host-side duties here:
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import tempfile
@@ -167,13 +168,14 @@ class Ranks:
         for p in self._procs:
             p.start()
 
-    def results(self, timeout: float = 3600.0) -> list:
+    def results(self, timeout: float | None = 3600.0) -> list:
         """Each rank's result, in rank order. Raises RuntimeError with the
         worker's traceback when any rank fails or exits without a result,
-        and TimeoutError after ``timeout`` seconds; either way every
-        worker is stopped and joined first."""
+        and TimeoutError after ``timeout`` seconds (None: no deadline, as
+        long as the ranks live); either way every worker is stopped and
+        joined first."""
         out: dict[int, object] = {}
-        deadline = time.monotonic() + timeout
+        deadline = math.inf if timeout is None else time.monotonic() + timeout
         try:
             while len(out) < self.nprocs:
                 try:
@@ -219,7 +221,7 @@ class Ranks:
 
 
 def run_ranks(fn, nprocs: int, args=(), device: str | torch.device = "cuda", backend: str | None = None,
-              timeout: float = 3600.0) -> list:
+              timeout: float | None = 3600.0) -> list:
     """``Ranks(fn, nprocs, args, device, backend).results(timeout)``: run
     ``fn(*args)`` in ``nprocs`` local ranks and return their results."""
     return Ranks(fn, nprocs, args, device, backend).results(timeout)
@@ -236,8 +238,10 @@ def launch(run, args, n_local: int, num_processes: int = 0, process_id: int | No
     """The CLIs' process layout. Under ``--num-processes`` > 1 or
     ``torchrun``'s environment this process joins the group and runs
     ``run(args)``; otherwise ``n_local`` > 1 runs it in that many local
-    workers (``run_ranks``), and 1 runs it here alone. Returns process
-    0's result (here: this process's)."""
+    workers (``run_ranks``, with no deadline: a recipe trains for hours
+    per fold, and a rank that dies or fails still stops the run), and 1
+    runs it here alone. Returns process 0's result (here: this
+    process's)."""
     if (num_processes or 0) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         initialize(coordinator, num_processes, process_id, device=device)
         try:
@@ -245,5 +249,5 @@ def launch(run, args, n_local: int, num_processes: int = 0, process_id: int | No
         finally:
             dist.destroy_process_group()
     if n_local > 1:
-        return run_ranks(run, n_local, args=(args,), device=device)[0]
+        return run_ranks(run, n_local, args=(args,), device=device, timeout=None)[0]
     return run(args)

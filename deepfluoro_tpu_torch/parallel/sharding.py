@@ -11,6 +11,16 @@
   global mean, as JAX's replicated step computes it.
 - **Ensemble (folds, members)**: independent per process; the per-fold
   losses and the member sums are gathered or summed.
+- **Spatial**: each process holds a band of rows of its data slice's
+  frames (``parallel/mesh.py::RowShard``); the U-Net's 3x3 convolutions
+  trade halo rows (``parallel/halo.py``, ``shard_rows``). BatchNorm's
+  statistics span 'data' x 'spatial', each rank weighted by its rows,
+  which the layout gives on the host. The losses' per-image sums are
+  summed over the bands (``spatial_sum``), so every band of a data slice
+  computes that slice's loss. The sums' backward sums the bands'
+  gradients too, so each band's gradient is S times its rows' share, and
+  the step's mean over 'data' x 'spatial' is the gradient of the global
+  batch (``average_gradients``).
 
 Every collective here is an ``all_reduce``, which gloo also takes on CUDA
 tensors (two gloo ranks can share one card; NCCL refuses that); a gather
@@ -42,6 +52,20 @@ def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     buf[axis.index] = x
     dist.all_reduce(buf, group=axis.group)
     return buf.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def gather_bands(t: torch.Tensor, shard, batch_rows: slice, b: int, crop_hw) -> torch.Tensor:
+    """The whole (b, ..., h, w) array of which this process holds ``t``:
+    the batch rows ``batch_rows`` (its data slice) and its band's rows
+    (``shard``, a ``RowShard``) of the frames' center crop to ``crop_hw``;
+    every process's part summed into a zero buffer over 'data' x
+    'spatial', so every process gets it (exact: x + 0 = x)."""
+    _, rows = shard.window(crop_hw[0])
+    buf = t.new_zeros((b,) + tuple(t.shape[1:-2]) + tuple(crop_hw))
+    buf[batch_rows, ..., rows, :] = t
+    if shard.joint.size > 1:
+        dist.all_reduce(buf, group=shard.joint.group)
+    return buf
 
 
 def sum_over(values, group=None) -> list[float]:
@@ -84,7 +108,13 @@ def average_gradients(params, loss: torch.Tensor, axis: Axis) -> torch.Tensor:
     ranks, and return the mean of ``loss`` over them: one ``all_reduce``
     of a flat buffer of every gradient and the loss. Parameters without a
     gradient (the U-Net's deepest downsampling conv, which forward never
-    uses) have none on any rank and stay so."""
+    uses) have none on any rank and stay so.
+
+    A row-sharded step averages over 'data' x 'spatial' (``RowShard.
+    joint``): every band of a data slice holds the slice's loss and
+    (``spatial_sum``'s backward) S times its rows' share of the slice's
+    gradient, so the sum over the S bands, divided by S, is the slice's
+    gradient."""
     if axis.size == 1:
         return loss
     grads = [p.grad for p in params if p.grad is not None]
@@ -98,26 +128,67 @@ def average_gradients(params, loss: torch.Tensor, axis: Axis) -> torch.Tensor:
     return flat[-1]
 
 
-def global_batch_stats(x: torch.Tensor, group):
+class _SpatialSum(torch.autograd.Function):
+    """The sum over the bands, whose backward sums the bands' gradients:
+    what follows the sum on one band (its own rows' centered values, the
+    loss) feeds the sum's gradient on every band. Every band computes the
+    same loss, so each band's gradients come out S times its share, which
+    ``average_gradients`` divides out."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def spatial_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` (a per-image partial sum over this band's rows) summed over
+    the bands of ``axis``; ``x`` itself for one band."""
+    return x if axis.size == 1 else _SpatialSum.apply(x, axis.group)
+
+
+def global_batch_stats(x: torch.Tensor, group, counts=()):
     """Per-channel (mean, biased variance) of ``x`` (B, C, H, W) over the
     batches of every rank of ``group``, in float64, and the global count
     of values per channel. Every rank's batch has the shape of this one
-    (the data axis splits each global batch evenly), so the count is known
-    here and the host waits on nothing. Each rank's (mean, M2) is gathered
-    and combined by Chan's rule, so no rank's sum of squares cancels."""
+    (the data axis splits each global batch evenly), or, with ``counts``
+    (the frame rows each rank of the group holds, in group order: a
+    row-sharded frame), the shape of this one with the rows scaled by
+    its count; so every count is known here and the host waits on
+    nothing. Each rank's (mean, M2) is gathered and combined by Chan's
+    rule, weighted by the counts, so no rank's sum of squares cancels."""
     dims = (0, 2, 3)
     c = x.shape[1]
     n_local = x.numel() // c
     size = dist.get_world_size(group)
+    me = dist.get_rank(group)
     mean = torch.sum(x, dims, dtype=torch.float64) / n_local
     m2 = torch.sum(torch.square(x - mean.to(x.dtype)[None, :, None, None]), dims, dtype=torch.float64)
     stats = x.new_zeros((size, 2 * c), dtype=torch.float64)
-    stats[dist.get_rank(group)] = torch.cat([mean, m2])
+    stats[me] = torch.cat([mean, m2])
     dist.all_reduce(stats, group=group)
     means, m2s = stats[:, :c], stats[:, c:]
-    g_mean = means.sum(0) / size
-    g_m2 = m2s.sum(0) + n_local * torch.square(means - g_mean).sum(0)
-    n = n_local * size
+    if not counts:
+        g_mean = means.sum(0) / size
+        g_m2 = m2s.sum(0) + n_local * torch.square(means - g_mean).sum(0)
+        n = n_local * size
+        return g_mean, g_m2 / n, n
+    # this level's rows of rank r: its frame rows over the level's stride
+    rows = x.shape[2]
+    per_row = n_local // rows
+    ns = [per_row * (counts[r] * rows // counts[me]) for r in range(size)]
+    n = sum(ns)
+    w = torch.tensor(ns, dtype=torch.float64, device=x.device)[:, None]
+    g_mean = (means * w).sum(0) / n
+    g_m2 = m2s.sum(0) + (w * torch.square(means - g_mean)).sum(0)
     return g_mean, g_m2 / n, n
 
 
@@ -155,13 +226,37 @@ class SyncBatchNormFn(torch.autograd.Function):
         return grad_x.to(x.dtype), sum_gx, sum_g, None, None, None, None
 
 
-def sync_batch_norm(model: torch.nn.Module, axis: Axis) -> None:
+def sync_batch_norm(model: torch.nn.Module, axis: Axis, counts=()) -> None:
     """Make every ``models/unet.py::BatchNorm2d`` of ``model`` compute its
     train-mode statistics over ``axis``'s global batch (JAX: the DP step's
-    BatchNorm sees the whole sharded batch). A size-1 axis leaves the
-    plain cuDNN path."""
+    BatchNorm sees the whole sharded batch); ``counts`` as
+    ``global_batch_stats``'s, for row-sharded frames. A size-1 axis leaves
+    the plain cuDNN path."""
     from deepfluoro_tpu_torch.models.unet import BatchNorm2d
 
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.group = axis.group if axis.size > 1 else None
+            m.counts = tuple(counts) if axis.size > 1 else ()
+
+
+def shard_rows(model: torch.nn.Module, shard) -> None:
+    """Run ``model`` (a ``models/unet.py::UNet``) on bands of rows over
+    ``shard``'s 'spatial' axis (a ``RowShard``): each 3x3 convolution
+    takes a one-row halo by its padding mode, and train-mode BatchNorm's
+    statistics span 'data' x 'spatial'. The U-Net must pad its
+    convolutions (a valid convolution would shrink bands unevenly) and
+    upsample with transposed convolutions (a bilinear upsampling mixes
+    rows across bands): ValueError otherwise."""
+    from deepfluoro_tpu_torch.models.unet import Conv3x3
+
+    convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
+    if shard.axis.size > 1:
+        if any(m.padding != (1, 1) for m in convs):
+            raise ValueError("row sharding needs padded convolutions (--unet-padding): a valid convolution shrinks "
+                             "the bands")
+        if any(isinstance(m, torch.nn.Upsample) for m in model.modules()):
+            raise ValueError("row sharding needs up_mode 'upconv': a bilinear upsampling mixes rows across bands")
+    for m in convs:
+        m.spatial = shard.axis
+    sync_batch_norm(model, shard.joint, shard.counts)

@@ -9,6 +9,12 @@ the top level, ``model-state-dict`` (reference-named NCHW weights),
 (train.py:473-515). A light save leaves the optimizer and scheduler state
 empty. Writes are atomic (a temporary file, then a rename), synchronous
 with ``save_checkpoint`` and on a worker thread with ``AsyncCheckpointer``.
+
+``load_checkpoint`` also reads the JAX package's checkpoints (flax
+msgpack, whatever their extension: ``fit_multifold``'s ``_specXX.pt``
+files are msgpack too) into this layout, without JAX
+(``compat/from_jax.py::torch_checkpoint_from_jax``), so a run the JAX
+package trained resumes here and its nets load for inference.
 """
 
 from __future__ import annotations
@@ -202,8 +208,27 @@ class AsyncCheckpointer:
         self._raise_pending()
 
 
+def is_torch_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a ``torch.save`` file, told by its content as the
+    JAX package tells it (``deepfluoro_tpu/train/checkpoint.py::
+    is_torch_checkpoint``): a zip archive (``PK``) or a bare pickle stream
+    (the ``\\x80`` PROTO opcode). Anything else is taken for flax msgpack,
+    whose top-level map of more than two entries starts 0x82-0x8f, 0xde
+    or 0xdf, is neither."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    return magic[:2] == b"PK" or magic[:1] == b"\x80"
+
+
 def load_checkpoint(path: str, weights_only: bool = True) -> dict:
-    """The raw checkpoint dict, tensors on the CPU. Files the JAX package
-    or the reference wrote may hold numpy scalars, which ``weights_only``
-    refuses: a resume loads them in full (load only files you trust)."""
+    """The checkpoint dict, tensors on the CPU: a ``.pt`` file as it is, a
+    JAX package msgpack file converted to this layout (its compute dtype,
+    remat flag and plateau LR kept, for a resume). Files the JAX package
+    or the reference wrote as ``.pt`` may hold numpy scalars, which
+    ``weights_only`` refuses: a resume loads them in full (load only files
+    you trust)."""
+    if not is_torch_checkpoint(path):
+        from deepfluoro_tpu_torch.compat.from_jax import torch_checkpoint_from_jax
+
+        return torch_checkpoint_from_jax(path, resume=True)
     return torch.load(path, map_location="cpu", weights_only=weights_only)

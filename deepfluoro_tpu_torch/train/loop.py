@@ -24,7 +24,11 @@ processes, one per card, ``fit`` trains data-parallel as the JAX
 package's multi-process ``fit`` does: every process holds the same
 replica and takes its contiguous slice of each global batch, BatchNorm
 normalizes over the global batch, the gradients and losses are averaged
-over the processes, and process 0 alone writes files.
+over the processes, and process 0 alone writes files. With a 'spatial'
+axis too and ``shard_spatial`` (JAX: ``fit(mesh=..., shard_spatial=
+True)``), each frame's rows are cut into bands over 'spatial' for the
+network (``train/step.py``; ``parallel/halo.py``), the 2x and 1x rungs'
+layout.
 """
 
 from __future__ import annotations
@@ -48,9 +52,17 @@ from deepfluoro_tpu_torch.data.hdf5 import (
     split_train_valid,
 )
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator, PrefetchIterator
-from deepfluoro_tpu_torch.parallel.mesh import Axis
+from deepfluoro_tpu_torch.ops.image import calc_pad_amount
+from deepfluoro_tpu_torch.parallel.mesh import Axis, row_shard
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
-from deepfluoro_tpu_torch.parallel.sharding import agree_any, barrier, count_true, gather_rows, sync_batch_norm
+from deepfluoro_tpu_torch.parallel.sharding import (
+    agree_any,
+    barrier,
+    count_true,
+    gather_rows,
+    shard_rows,
+    sync_batch_norm,
+)
 from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartLR
@@ -59,14 +71,15 @@ from deepfluoro_tpu_torch.utils.io import RunningFloatWriter
 from deepfluoro_tpu_torch.utils.platform import get_device
 
 
-def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator, data: Axis = Axis()):
+def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator, data: Axis = Axis(), shard=None):
     """Per-image losses over a dataset -> (mean, std with N-1), as the
     reference's batch-1 no-grad loop (util.py:116-165).
 
     Over a data axis of several ranks each batch is split over them (an
     uneven batch padded with duplicates of its row 0, masked out after)
     and the per-image losses are gathered, so every rank gets the one
-    result; they are row-local, so they equal one process's."""
+    result; they are row-local, so they equal one process's. With a
+    ``shard`` the frames are row-sharded as in training."""
     losses = []
     for batch in iterator.epoch():
         n = int(batch[0].shape[0])
@@ -80,7 +93,7 @@ def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator, data: Ax
                 a = torch.cat([a, a[:1].expand(pad, *a.shape[1:])])
             return a[rows]
 
-        local = eval_losses(model, cfg, aug_cfg, tuple(part(a) for a in batch))
+        local = eval_losses(model, cfg, aug_cfg, tuple(part(a) for a in batch), shard)
         losses.append(gather_rows(local, data)[:n])
     losses = torch.cat(losses).cpu().numpy()
     std = float(losses.std(ddof=1)) if losses.size > 1 else 0.0
@@ -242,6 +255,7 @@ def fit(
     stream_data: bool = False,
     device: str | torch.device | None = None,
     mesh=None,
+    shard_spatial: bool = False,
 ) -> dict:
     """Train a network on ``device`` (default CUDA; raises without a card
     unless ``device="cpu"``), resuming from ``checkpoint_filename`` when it
@@ -272,6 +286,18 @@ def fit(
     them got SIGTERM or ran out of ``max_hours``. The returned losses are
     the global ones on every process.
 
+    A mesh with a 'spatial' axis of S processes too ({'data': P,
+    'spatial': S}) and ``shard_spatial=True`` cuts every padded frame into
+    S bands of rows (``parallel/mesh.py::row_layout``: whole blocks of
+    ``2**(depth - 1)`` rows, uneven bands allowed; a frame that cannot be
+    cut so raises ValueError), one per process of each data slice: each
+    prepares its slice's whole frames (the same augmentation, one warp
+    launch per step), keeps its band, and runs the U-Net on it with halo
+    exchanges; BatchNorm spans data x spatial, the losses span the bands,
+    the gradients are summed over 'spatial' and averaged over 'data'.
+    Validation runs on the same bands. Without ``shard_spatial`` the
+    'spatial' processes train replicas of their data slice.
+
     Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
     num_restarts, train_idx, valid_idx, train_losses, valid_losses,
     step_seconds) for this session; ``step_seconds`` holds each iteration
@@ -290,17 +316,20 @@ def fit(
 
     dev = get_device(device)
     axis = Axis() if mesh is None else mesh.axis("data")
-    if mesh is not None and set(mesh.axis_names) - {"data"}:
-        raise ValueError("fit shards over a 'data' axis only; got mesh axes {}".format(mesh.axes))
+    if mesh is not None and set(mesh.axis_names) - {"data", "spatial"}:
+        raise ValueError("fit shards over 'data' and 'spatial' axes only; got mesh axes {}".format(mesh.axes))
+    spatial = shard_spatial and mesh is not None and mesh.axis("spatial").size > 1
+    # every process of the mesh agrees on resume, stopping and writing
+    world = Axis() if mesh is None else mesh.joint(*mesh.axis_names)
     prev = None
     train_idx = valid_idx = None
     resume = os.path.exists(checkpoint_filename)
-    if axis.size > 1:
-        seen = count_true(resume, axis.group)
-        if seen not in (0, axis.size):
+    if world.size > 1:
+        seen = count_true(resume, world.group)
+        if seen not in (0, world.size):
             raise RuntimeError(
                 "checkpoint '{}' exists on {} of {} processes; a multi-process resume needs it on storage every "
-                "process sees".format(checkpoint_filename, seen, axis.size)
+                "process sees".format(checkpoint_filename, seen, world.size)
             )
     if resume:
         log("loading state from checkpoint...")
@@ -368,6 +397,13 @@ def fit(
         model = build_model(cfg)
     model.to(dev)
     sync_batch_norm(model, axis)
+    shard = None
+    if spatial:
+        pad = cfg.proj_unet_dim
+        rows = orig_h + 2 * calc_pad_amount(pad, orig_h) if pad > orig_h else orig_h
+        shard = row_shard(mesh, rows, 2 ** (cfg.depth - 1))
+        shard_rows(model, shard)
+        log("row-sharded frames: rows [{}, {}) of {} on this process".format(shard.start, shard.stop, rows))
     optimizer = make_optimizer(cfg, model.parameters())
     lr_sched = make_scheduler(cfg)
 
@@ -442,7 +478,7 @@ def fit(
             batches = train_iter.epoch()
             for batch in batches:
                 lr = lr_sched.get_lr() if lr_sched is not None else cfg.init_lr
-                loss = float(train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis))
+                loss = float(train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis, shard))
                 last_loss = loss
                 train_losses.append(loss)
                 if train_loss_out is not None:
@@ -462,7 +498,7 @@ def fit(
                 t_mark = now
 
             log("  Running validation")
-            avg_valid_loss, std_valid_loss = evaluate(model, cfg, aug_eval, valid_iter, axis)
+            avg_valid_loss, std_valid_loss = evaluate(model, cfg, aug_eval, valid_iter, axis, shard)
             valid_losses.append(avg_valid_loss)
             if valid_loss_out is not None:
                 valid_loss_out.write(avg_valid_loss)
@@ -534,7 +570,7 @@ def fit(
                 log("  Exiting - maximum number of epochs performed!")
             # SIGTERM and the clock are per process: stop everywhere if any
             # process stops, or its peers wait for it at the next collective
-            if axis.size > 1 and agree_any(not keep_training, axis.group) and keep_training:
+            if world.size > 1 and agree_any(not keep_training, world.group) and keep_training:
                 keep_training = False
                 log("  Exiting - a peer process requested termination!")
 
@@ -562,8 +598,8 @@ def fit(
         if reader is not None:
             reader.close()
         sigterm.restore()
-    if axis.size > 1:
-        barrier(axis.group)  # every process returns after process 0's files are written
+    if world.size > 1:
+        barrier(world.group)  # every process returns after process 0's files are written
 
     return {
         "model": model,

@@ -26,6 +26,18 @@ run in one process on card 0:
            ``ensemble_batches`` against one process (heats within 1e-5,
            labels differing on < 0.1 %), frames/s by the --times contract
            beside one process's.
+  spatial  (four or more cards: the first four) the 2x rung (718^2 ->
+           736^2, ``chip_smoke.py``'s ``LADDER``) with bf16, remat and the
+           streamed feed, augmentation on, 1 epoch, on a {'data': 2,
+           'spatial': 2} mesh at global batch 10 (bands 384 + 352, NCCL
+           halo exchanges), against one card at batch 10: losses within
+           5e-3 relative (the bf16 tolerance), one warp launch per step
+           per rank; steps/s and peak memory less baseline per rank beside
+           one card's. Then a seeded 1x member (1440^2 padded input)
+           over raw 1536^2 frames through ``fullres_batches`` on a
+           {'spatial': 4} mesh (bands 384 + 352 + 352 + 352) against one
+           card: labels differing on < 0.1 % of pixels, heats within
+           1e-4; frames/s and peaks beside one card's.
 
 Prints the cards' names and power limits, one line per run, and a
 summary JSON as the last line. Run from the repository root.
@@ -48,6 +60,10 @@ import chip_smoke as cs  # noqa: E402
 PER_CARD_BATCH = 5
 FRAMES = 256
 BATCH = 64
+SPATIAL_BATCH = 10  # the 2x rung's global batch on {'data': 2, 'spatial': 2}: 5 frames per data slice
+SPATIAL_FRAMES = 46  # 2x frames: 40 train (four global batches), 6 validation
+FULLRES_FRAMES = 16  # raw 1x frames through the {'spatial': 4} ensemble
+FULLRES_BATCH = 2
 
 
 def _data(seed, n_cards):
@@ -114,6 +130,119 @@ def rank_ensemble(paths, seed, settings, axes):
     return _ensemble(paths, seed, make_mesh(axes))
 
 
+def _spatial_fit(seed, workdir, tag, mesh=None):
+    """The 2x rung's ``fit`` (bf16, remat, streamed feed), one epoch at
+    global batch SPATIAL_BATCH, row-sharded on ``mesh`` if given."""
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.train import fit
+
+    _, frame, pad, _, _ = cs.LADDER[0]
+    data = make_synthetic_data(num_specimens=1, num_projs=SPATIAL_FRAMES, img_dim=frame, seed=seed + frame)
+    cfg = cs._recipe_cfg(data, seed, proj_unet_dim=pad, batch_size=SPATIAL_BATCH, max_num_epochs=1,
+                         compute_dtype="bfloat16", remat=True)
+    baseline = cs._peak_start()
+    warp.warp_launches = 0
+    out = fit(data, [1], cfg, verbose=False, device=cs.DEVICE, stream_data=True, mesh=mesh,
+              shard_spatial=mesh is not None, **cs._fit_files(workdir, tag))
+    cs._sync()
+    sec = out["step_seconds"][1:]
+    return {"train": out["train_losses"], "valid": out["valid_losses"], "steps": len(out["train_losses"]),
+            "launches": warp.warp_launches, "steps_per_s": len(sec) / sum(sec), "peak": cs._peak_since(baseline)}
+
+
+def rank_spatial(seed, workdir, settings):
+    from deepfluoro_tpu_torch.parallel import make_mesh
+
+    cs._rank_setup(True, settings)
+    return _spatial_fit(seed, workdir, "sp2x", make_mesh({"data": 2, "spatial": 2}))
+
+
+def _fullres_1x(seed, member_path, mesh=None):
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=FULLRES_FRAMES, img_dim=cs.FULLRES_DIM,
+                                       seed=seed + 5)[0]
+    model, cfg = load_net_from_checkpoint(member_path, device=cs.DEVICE, verbose=False)
+    baseline = cs._peak_start()
+    times = []
+    out = [(l, h) for _, l, h in fullres_batches(
+        lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), FULLRES_FRAMES, spec["projs"].shape[1:], [model],
+        1, model.num_lands, times, FULLRES_BATCH, cfg.proj_unet_dim, mesh=mesh)]
+    return {"batches": out, "frames_per_s": len(times) / sum(times), "peak": cs._peak_since(baseline)}
+
+
+def rank_fullres(seed, member_path, settings):
+    from deepfluoro_tpu_torch.parallel import make_mesh
+
+    cs._rank_setup(True, settings)
+    return _fullres_1x(seed, member_path, make_mesh({"spatial": torch.distributed.get_world_size()}))
+
+
+def _fullres_member(seed, workdir):
+    """A seeded 1x member (``chip_smoke.py``'s ``_seeded_member``, its
+    BatchNorm statistics from prepared raw frames), saved."""
+    import types
+
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data
+    from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
+    from deepfluoro_tpu_torch.train.checkpoint import save_checkpoint
+
+    _, factor, pad, _, batch = cs.FULLRES_RUNGS[-1]
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=batch, img_dim=cs.FULLRES_DIM, seed=seed + 6)[0]
+    cfg = cs._recipe_cfg(types.SimpleNamespace(num_lands=spec["lands"].shape[-1]), seed, proj_unet_dim=pad)
+    prep, _ = make_fullres_prep(factor, pad, spec["projs"].shape[1:])
+    calib = prep(torch.from_numpy(spec["projs"]).to(cs.DEVICE), torch.from_numpy(spec["rots"]).to(cs.DEVICE))
+    path = os.path.join(workdir, "member_1x.pt")
+    save_checkpoint(path, cfg, cs._seeded_member(cfg, seed * 1000 + pad, calib))
+    return path
+
+
+def _spatial_runs(seed, workdir, settings, summary):
+    """The 'spatial' runs on the first four cards; returns whether they
+    pass."""
+    one = _spatial_fit(seed, workdir, "sp2x_one")
+    ranks = run_ranks_4(rank_spatial, (seed, workdir, settings))
+    rel = max(max(cs._rel(r["train"], one["train"]), cs._rel(r["valid"], one["valid"])) for r in ranks)
+    summary["spatial_2x"] = {"mesh": {"data": 2, "spatial": 2}, "global_batch": SPATIAL_BATCH,
+                             "steps": ranks[0]["steps"], "warp_launches": [r["launches"] for r in ranks],
+                             "max_rel": rel, "steps_per_s_per_rank": [r["steps_per_s"] for r in ranks],
+                             "peak_per_rank": [r["peak"] for r in ranks],
+                             "one_card_steps_per_s": one["steps_per_s"], "one_card_peak": one["peak"]}
+    print("spatial: 2x rung, bf16 + remat + streamed feed, global batch {} on {{'data': 2, 'spatial': 2}}: losses "
+          "within {:.2e} relative of one card (<= 5e-3), warp launches {} for {} steps each; steps/s per rank {} "
+          "against one card {:.3f}; peaks less baseline per rank {} bytes against one card's {}".format(
+              SPATIAL_BATCH, rel, [r["launches"] for r in ranks], ranks[0]["steps"],
+              ["%.3f" % r["steps_per_s"] for r in ranks], one["steps_per_s"], [r["peak"] for r in ranks],
+              one["peak"]))
+    ok = rel <= 5e-3 and all(r["launches"] == r["steps"] for r in ranks)
+
+    member = _fullres_member(seed, workdir)
+    want = _fullres_1x(seed, member)
+    got = run_ranks_4(rank_fullres, (seed, member, settings))
+    heat = max(float(np.abs(g[1] - w[1]).max()) for g, w in zip(got[0]["batches"], want["batches"]))
+    differ = float(np.mean(np.concatenate([(g[0] != w[0]).ravel() for g, w in zip(got[0]["batches"],
+                                                                                 want["batches"])])))
+    summary["spatial_fullres_1x"] = {"mesh": {"spatial": 4}, "frames": FULLRES_FRAMES, "batch": FULLRES_BATCH,
+                                     "heats_max_abs": heat, "label_share_differ": differ,
+                                     "frames_per_s": got[0]["frames_per_s"], "peak_per_rank": [r["peak"] for r in got],
+                                     "one_card_frames_per_s": want["frames_per_s"], "one_card_peak": want["peak"]}
+    print("spatial: 1x full-res inference on {{'spatial': 4}}, {} raw {}^2 frames at batch {}: heats within {:.2e} "
+          "(<= 1e-4), labels differ on {:.4%} (< 0.1 %); {:.3f} frames/s against one card {:.3f}; peaks less "
+          "baseline per rank {} bytes against one card's {}".format(
+              FULLRES_FRAMES, cs.FULLRES_DIM, FULLRES_BATCH, heat, differ, got[0]["frames_per_s"],
+              want["frames_per_s"], [r["peak"] for r in got], want["peak"]))
+    return ok and heat <= 1e-4 and differ < 1e-3
+
+
+def run_ranks_4(fn, args):
+    from deepfluoro_tpu_torch.parallel import run_ranks
+
+    return run_ranks(fn, 4, args=args, device=cs.DEVICE, timeout=1200)
+
+
 def _members(seed, workdir):
     from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
     from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
@@ -136,6 +265,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("all", "spatial"), default="all",
+                        help="run every path, or only the spatial runs")
     args = parser.parse_args(argv)
     n = torch.cuda.device_count() if cs.DEVICE == "cuda" else 4
     if n < 2:
@@ -144,9 +275,16 @@ def main(argv=None) -> int:
     if cs.DEVICE == "cuda":
         print(cs._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     cs._rank_setup(True)
-    settings = {k: getattr(cs, k) for k in cs.RANK_SETTINGS}
+    settings = {k: getattr(cs, k) for k in cs.SPATIAL_SETTINGS}
     workdir = tempfile.mkdtemp(prefix="port_multicard_")
     summary = {"cards": n}
+    if args.only == "spatial":
+        if n < 4:
+            print("port_multicard: the spatial runs need four cards, found {}".format(n), file=sys.stderr)
+            return 1
+        ok = _spatial_runs(args.seed, workdir, settings, summary)
+        print(json.dumps(summary))
+        return 0 if ok else 1
 
     one = _fit(args.seed, workdir, "one", n, PER_CARD_BATCH * n)
     small = _fit(args.seed, workdir, "small", n, PER_CARD_BATCH)
@@ -201,6 +339,8 @@ def main(argv=None) -> int:
               "frames/s against one process {:.1f} at batch {}".format(
                   cs.ENSEMBLE_K, axes, heat, differ, got["frames_per_s"], want["frames_per_s"], BATCH))
         ok = ok and heat <= 1e-5 and differ < 1e-3
+    if n >= 4:
+        ok = _spatial_runs(args.seed, workdir, settings, summary) and ok
     print(json.dumps(summary))
     return 0 if ok else 1
 
