@@ -160,6 +160,36 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      < 0.1 % of pixels and only where its top two are within 1e-4, heats
      within 1e-4, frames/s of both. The ranks start while this process
      runs (a) and the one-process references;
+ 13. tensor parallel, sharded checkpoints, int8 bands (two gloo ranks on
+     ``cuda:0``, deterministic cuDNN, against one process): (a) one step
+     of phase 4's 8x recipe at full width on {'model': 2} from ``fit``'s
+     initial weights, augmentation off: the loss within 1e-6 relative,
+     every gradient and every parameter after the step as close to one
+     process's float64 step as one process's float32 step is (the worst
+     ratio of the two errors at most 2); then ``fit`` on {'model': 2} for
+     one epoch, augmentation on, losses equal across ranks and the first
+     epoch within 2e-3 relative of phase 10(a)'s one process, printed
+     beside phase 11's spread under cuDNN's benchmark algorithms, one warp
+     launch per step per rank, steps/s and peak less baseline per rank;
+     (b) that state saved with ``save_sharded_checkpoint`` at T = 2,
+     restored on one process bit-equal to the gathered state, and
+     restored at T = 2, where the next step equals the live state's bit
+     for bit; (c) phase 8's 1x member int8 over two raw 1536^2 frames on
+     {'spatial': 2} (``fullres_batches(mesh=..., quantized=True)``, scales
+     from the whole frames) against one process's int8: labels equal,
+     heats within 1e-5, frames/s of both; (d) one step of the 8x recipe
+     on the real archive's 179 -> 193 rows (bands 96 + 97) at depth 6,
+     and of an unpadded and an 'upsample' U-Net at depth 3 (192^2), on
+     {'spatial': 2}: the loss within 1e-6 relative; the same step in
+     float64 on the bands within 1e-6 of each tensor's largest gradient
+     of one process's float64 step (the sharding is exact: only the
+     outputs' float32 softmax and heats round); the float32 step's worst
+     gradient error against float64, as a share of its tensor's largest,
+     at most twice one process's own (a floor of 1e-5). (a)'s per-tensor
+     ratio is printed too; here it is no gate: where the deep levels'
+     BatchNorm is ill-conditioned one process's own float32 errors range
+     from 1e-5 to 1e-1 of a tensor's largest, so either step can be the
+     closer one on a given tensor by chance;
  12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
@@ -167,14 +197,15 @@ It needs no JAX and no h5py. Phases, each with its wall time:
 Any failed check raises, and the script exits non-zero without the final
 line; a rank that fails makes its phase raise. On success a line ``int8
 summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
-line ``distributed summary: {...}`` phase 10's and a line ``spatial
-summary: {...}`` phase 11's; the line before the last is a JSON object
-describing the kernel (with its times at every geometry and its launches
-on each path: training, resume and stream, folds, 2x and 1x ladder
-training, data-parallel training in float32 and in bf16 with remat,
-fold-sharded training, the augmented resume from the JAX checkpoint, and
-row-sharded training at 8x and at 2x, the parallel ones counted by the
-ranks), and the last line is
+line ``distributed summary: {...}`` phase 10's, a line ``spatial
+summary: {...}`` phase 11's and a line ``tp summary: {...}`` phase 13's;
+the line before the last is a JSON object describing the kernel (with its
+times at every geometry and its launches on each path: training, resume
+and stream, folds, 2x and 1x ladder training, data-parallel training in
+float32 and in bf16 with remat, fold-sharded training, the augmented
+resume from the JAX checkpoint, row-sharded training at 8x and at 2x, and
+tensor-parallel training, the parallel ones counted by the ranks), and
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2093,7 +2124,6 @@ def _spatial_step(seed, dtype=torch.float32, mesh=None):
     (gradients then summed over the bands): (loss, {name: float64
     gradient}, {name: BatchNorm running buffer})."""
     from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
-    from deepfluoro_tpu_torch.parallel.mesh import row_shard
     from deepfluoro_tpu_torch.parallel.sharding import average_gradients, shard_rows
     from deepfluoro_tpu_torch.train.config import build_model
     from deepfluoro_tpu_torch.train.step import per_sample_losses, shard_prepared
@@ -2110,8 +2140,7 @@ def _spatial_step(seed, dtype=torch.float32, mesh=None):
     prepared = {k: v.to(dtype) if torch.is_floating_point(v) else v for k, v in prepared.items()}
     shard = None
     if mesh is not None:
-        shard = row_shard(mesh, TRAIN_PAD, 2 ** (TRAIN_DEPTH - 1))
-        shard_rows(model, shard)
+        shard = shard_rows(model, mesh, TRAIN_PAD)
         prepared = shard_prepared(prepared, shard)
     model.train()
     loss = per_sample_losses(cfg, model(prepared["proj"]), prepared["seg"], prepared["heats"], True, shard,
@@ -2367,6 +2396,329 @@ def _spatial_checks(one, ranks, card):
                      "spatial_2x_training": sum(r["launches"] for r in c)}
 
 
+# phase 13: tensor parallelism, sharded checkpoints, int8 bands, the repairs
+TP_EPOCHS = 1  # 13(a): the 8x recipe's fit on {'model': 2}
+ODD_FRAME = 179  # 13(d): the real 8x archive's frames, padded to 193 rows
+REPAIR_DEPTH = 3  # 13(d): the unpadded and 'upsample' U-Nets' reduced depth
+TP_SETTINGS = SPATIAL_SETTINGS + ("TP_EPOCHS", "ODD_FRAME", "REPAIR_DEPTH")
+
+
+def _repairs():
+    """13(d)'s cases, (name, frame, U-Net flags over the recipe's), at
+    this run's sizes (a CPU rehearsal shrinks them)."""
+    return [("8x {}->{}".format(ODD_FRAME, ODD_FRAME + 2 * _odd_pad()), ODD_FRAME, {}),
+            ("unpadded", TRAIN_FRAME, {"padding": False, "depth": REPAIR_DEPTH}),
+            ("upsample", TRAIN_FRAME, {"up_mode": "upsample", "depth": REPAIR_DEPTH})]
+
+
+def _odd_pad():
+    from deepfluoro_tpu_torch.ops.image import calc_pad_amount
+
+    return calc_pad_amount(TRAIN_PAD, ODD_FRAME)
+
+
+def _step13(seed, dtype=torch.float32, mesh=None, frame=None, lr=None, **flags):
+    """One train-mode forward and backward of the 8x recipe's loss from
+    ``fit``'s seeded initial weights on 5 frames of ``frame``^2 made from
+    ``seed`` (augmentation off), the U-Net's flags overridden by ``flags``:
+    whole, row-sharded on ``mesh``'s 'spatial' axis or cut over its
+    'model' axis (the gradients summed over the bands or gathered over
+    'model'); with ``lr``, then one optimizer step. The targets are
+    center-cropped to the output where a valid U-Net's is smaller.
+    Returns (loss, {name: float64 gradient}, {name: float64 parameter
+    after the step} or None)."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.models import UNet
+    from deepfluoro_tpu_torch.ops.image import center_crop
+    from deepfluoro_tpu_torch.parallel.mesh import Axis
+    from deepfluoro_tpu_torch.parallel.sharding import average_gradients, shard_rows
+    from deepfluoro_tpu_torch.parallel.tensor import gather_state, shard_channels
+    from deepfluoro_tpu_torch.train.step import make_optimizer, per_sample_losses, shard_prepared
+
+    frame = frame or TRAIN_FRAME
+    data = make_synthetic_data(num_specimens=1, num_projs=5, img_dim=frame, seed=seed + frame)
+    cfg = _recipe_cfg(data, seed)
+    kw = dict(n_classes=7, depth=TRAIN_DEPTH, wf=TRAIN_WF, padding=True, batch_norm=True, max_pool=False,
+              num_lands=data.num_lands)
+    kw.update(flags)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = UNet(**kw)
+    model.to(DEVICE, dtype)
+    prepared = prepare_batch(AugmentConfig(num_classes=7, proj_pad_dim=TRAIN_PAD, prob_of_aug=0.0), None,
+                             *(torch.from_numpy(a).to(DEVICE) for a in (data.projs, data.segs, data.lands)))
+    prepared = {k: v.to(dtype) if torch.is_floating_point(v) else v for k, v in prepared.items()}
+    with torch.no_grad():
+        rows = min(model.eval()(prepared["proj"][:1])[0].shape[-1], prepared["seg"].shape[-1])
+    for k in ("seg", "heats"):
+        prepared[k] = center_crop(prepared[k], (rows, rows))
+    shard = None
+    if mesh is not None and mesh.axis("spatial").size > 1:
+        shard = shard_rows(model, mesh, prepared["proj"].shape[-2])
+        prepared = shard_prepared(prepared, shard)
+    tp = Axis() if mesh is None else mesh.axis("model")
+    dims = shard_channels(model, tp)
+    opt = make_optimizer(cfg, model.parameters())
+    model.train()
+    loss = per_sample_losses(cfg, model(prepared["proj"]), prepared["seg"], prepared["heats"], True, shard,
+                             prepared.get("target_rows", 0)).mean()
+    loss.backward()
+    loss = loss.detach()
+    if shard is not None:
+        loss = average_gradients(model.parameters(), loss, shard.joint)
+    grads, _ = gather_state({k: p.grad for k, p in model.named_parameters() if p.grad is not None}, dims, tp)
+    grads = {k: v.double().cpu().numpy() for k, v in grads.items()}
+    params = None
+    if lr is not None:
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        params, _ = gather_state(dict(model.named_parameters()), dims, tp)
+        params = {k: v.detach().double().cpu().numpy() for k, v in params.items()}
+    return float(loss), grads, params
+
+
+def _tp_batch(seed):
+    """13(b)'s step after the restore: the first 5 smoke frames, prepared
+    without augmentation."""
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
+
+    data = _smoke_data(seed)
+    return prepare_batch(AugmentConfig(num_classes=7, proj_pad_dim=TRAIN_PAD, prob_of_aug=0.0), None,
+                         *(torch.from_numpy(a[:5]).to(DEVICE) for a in (data.projs, data.segs, data.lands)))
+
+
+def _rank_tp(seed, workdir, member_path, settings, go_file):
+    """Phase 13(a)-(d) on one of two gloo ranks sharing the card."""
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.parallel import make_mesh
+    from deepfluoro_tpu_torch.parallel.tensor import gather_state, shard_channels
+    from deepfluoro_tpu_torch.train import fit, load_sharded_checkpoint, save_sharded_checkpoint
+    from deepfluoro_tpu_torch.parallel.sharding import sync_batch_norm
+    from deepfluoro_tpu_torch.train.config import build_model
+    from deepfluoro_tpu_torch.train.step import make_optimizer, update_step
+
+    _rank_setup(True, settings)
+    _await_go(go_file)
+    rank = torch.distributed.get_rank()
+    tp_mesh = make_mesh({"model": 2})
+    tp = tp_mesh.axis("model")
+    loss, grads, params = _step13(seed, mesh=tp_mesh, lr=0.1)
+    out = {"a_step": (loss, grads if rank == 0 else None, params if rank == 0 else None)}
+    del grads, params
+
+    data = _smoke_data(seed)
+    cfg = _recipe_cfg(data, seed, max_num_epochs=TP_EPOCHS)
+    baseline = _peak_start()
+    warp.warp_launches = 0
+    res = fit(data, [2, 3, 4, 5, 6], cfg, verbose=False, device=DEVICE, mesh=tp_mesh, **_fit_files(workdir, "tp8x"))
+    _sync()
+    out["a"] = {"train": res["train_losses"], "valid": res["valid_losses"], "steps": len(res["train_losses"]),
+                "launches": warp.warp_launches, "step_seconds": res["step_seconds"], "peak": _peak_since(baseline)}
+
+    # (b): the fit's state saved at T = 2, then its next step taken from
+    # the live state and from the state restored at T = 2
+    model, optimizer = res["model"], res["optimizer"]
+    keys = [k for k, _ in model.named_parameters()]
+    path = os.path.join(workdir, "tp_sharded")
+    t0 = time.perf_counter()
+    save_sharded_checkpoint(path, cfg.to_checkpoint_meta(), model, optimizer, epoch=res["epoch"])
+    save_s = time.perf_counter() - t0
+    state, opt_state = gather_state(model.state_dict(), model.channel_rule, tp, optimizer.state_dict(), keys)
+    # copies: the whole leaves are the live ones, which the next step moves
+    whole = ({k: v.cpu().numpy().copy() for k, v in state.items()},
+             {i: e["momentum_buffer"].cpu().numpy().copy() for i, e in opt_state["state"].items()}) if rank == 0 else None
+    batch = _tp_batch(seed)
+    live = float(update_step(model, optimizer, cfg, dict(batch), 1e-3))
+    live_params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    with torch.random.fork_rng(devices=[]):
+        restored = build_model(cfg)
+    restored.to(DEVICE)
+    sync_batch_norm(restored, tp_mesh.axis("data"))
+    shard_channels(restored, tp)
+    ropt = make_optimizer(cfg, restored.parameters())
+    t0 = time.perf_counter()
+    ck = load_sharded_checkpoint(path, tp)
+    load_s = time.perf_counter() - t0
+    restored.load_state_dict(ck["model-state-dict"])
+    ropt.load_state_dict(ck["optimizer-state-dict"])
+    again = float(update_step(restored, ropt, cfg, dict(batch), 1e-3))
+    same = live == again and all(torch.equal(p, live_params[k]) for k, p in restored.named_parameters())
+    out["b"] = {"whole": whole, "next_loss": live, "restored_loss": again, "restored_equal": same,
+                "save_s": save_s, "load_s": load_s}
+    del res, model, optimizer, restored, ropt, ck, state, opt_state, live_params
+
+    sp_mesh = make_mesh({"spatial": 2})
+    projs, rots = _fullres_1x_frames(seed)
+    member, mcfg = load_net_from_checkpoint(member_path, device=DEVICE, verbose=False)
+    baseline = _peak_start()
+    times = []
+    got = list(fullres_batches(lambda i0, i1: (projs[i0:i1], rots[i0:i1]), len(projs), projs.shape[1:], [member], 1,
+                               member.num_lands, times, len(projs), mcfg.proj_unet_dim, quantized=True, mesh=sp_mesh))
+    out["c"] = {"batches": got if rank == 0 else None, "fps": len(times) / sum(times), "peak": _peak_since(baseline)}
+    del member
+
+    out["d"] = []
+    for name, frame, flags in _repairs():
+        steps = [_step13(seed, dtype, mesh=sp_mesh, frame=frame, **flags)[:2] for dtype in (torch.float32,
+                                                                                          torch.float64)]
+        out["d"].append(steps if rank == 0 else None)
+    return out
+
+
+def _tp_references(seed, member_path):
+    """The one-process runs phase 13's ranks are held against: (a)'s step
+    in float32 and float64; (c) the 1x member's int8 full-res, timed; (d)
+    each repair's step in float32 and float64."""
+    from deepfluoro_tpu_torch.infer import load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+
+    out = {"a32": _step13(seed, lr=0.1), "a64": _step13(seed, torch.float64, lr=0.1)}
+    projs, rots = _fullres_1x_frames(seed)
+    member, mcfg = load_net_from_checkpoint(member_path, device=DEVICE, verbose=False)
+    times = []
+    out["c"] = list(fullres_batches(lambda i0, i1: (projs[i0:i1], rots[i0:i1]), len(projs), projs.shape[1:], [member],
+                                    1, member.num_lands, times, len(projs), mcfg.proj_unet_dim, quantized=True))
+    out["c_fps"] = len(times) / sum(times)
+    del member
+    out["d"] = [(_step13(seed, frame=frame, **flags), _step13(seed, torch.float64, frame=frame, **flags))
+                for _, frame, flags in _repairs()]
+    return out
+
+
+def _exactness(name, got, one32, one64):
+    """(loss relative difference, worst gradient error ratio, its tensor)
+    of ``got`` (loss, grads) against one process's float32 and float64
+    steps: each gradient's error against float64 over one process's
+    float32 error (a floor of 1e-5 of the tensor's largest value)."""
+    loss, grads = got[0], got[1]
+    rel = abs(loss - one32[0]) / abs(one32[0])
+    g32, g64 = one32[1], one64[1]
+    if sorted(grads) != sorted(g64):
+        raise AssertionError("{}: the sharded step's gradients are not the whole model's".format(name))
+    ratio = max((np.abs(grads[k] - g64[k]).max() / max(np.abs(g32[k] - g64[k]).max(), 1e-5 * np.abs(g64[k]).max()), k)
+                for k in g64)
+    return rel, ratio[0], ratio[1]
+
+
+def phase_tp(seed, workdir, member_path, refs, spread, card):
+    """Phase 13 (see the module docstring), deterministic cuDNN in every
+    process. Returns (summary, launches per path)."""
+    from deepfluoro_tpu_torch.parallel.multihost import Ranks
+    from deepfluoro_tpu_torch.train import load_sharded_checkpoint
+
+    settings = {k: globals()[k] for k in TP_SETTINGS}
+    go = os.path.join(workdir, "go_tp")
+    t0 = time.perf_counter()
+    ranks = Ranks(_rank_tp, 2, args=(seed, workdir, member_path, settings, go), device=DEVICE, backend="gloo")
+    try:
+        _rank_setup(True)
+        try:
+            one = _tp_references(seed, member_path)
+        finally:
+            _rank_setup(False)
+        print("  one-process references while the ranks start: {:.1f} s".format(time.perf_counter() - t0))
+        t1 = time.perf_counter()
+        open(go, "w").close()
+        got = ranks.results(timeout=900)
+        print("  (a)-(d) ran {:.1f} s after their go".format(time.perf_counter() - t1))
+    finally:
+        ranks.close()
+    summary = {}
+
+    rel, ratio, worst = _exactness("13(a)", got[0]["a_step"], one["a32"], one["a64"])
+    p32, p64, p_tp = one["a32"][2], one["a64"][2], got[0]["a_step"][2]
+    pratio = max(np.abs(p_tp[k] - p64[k]).max() / max(np.abs(p32[k] - p64[k]).max(), 1e-6 * np.abs(p64[k]).max())
+                 for k in p64)
+    print("  (a) {} one step of the 8x recipe at full width (depth {}, wf {}, {}^2, 5 frames, augmentation off) from "
+          "fit's initial weights on {{'model': 2}}: loss within {:.2e} relative of one process (<= 1e-6); every "
+          "gradient as close to one process's float64 step as one process's float32 step: worst ratio {:.3f} ({}; "
+          "<= 2); every parameter after the step: worst ratio {:.3f} (<= 2, floor 1e-6 of the largest)".format(
+              _card(card), TRAIN_DEPTH, TRAIN_WF, TRAIN_PAD, rel, ratio, worst, pratio))
+    if rel > 1e-6 or ratio > 2.0 or pratio > 2.0:
+        raise AssertionError("phase 13(a): the tensor-parallel step is not as exact as one process's float32 step")
+    a = [r["a"] for r in got]
+    want = refs["a"]
+    epoch = len(want["train_losses"]) // 2
+    first = max(_fit_rel(r, {"train_losses": want["train_losses"][:epoch], "valid_losses": want["valid_losses"][:1]},
+                         epoch)[0] for r in a)
+    same_ranks = a[0]["train"] == a[1]["train"] and a[0]["valid"] == a[1]["valid"]
+    rates = [len(r["step_seconds"][1:]) / max(sum(r["step_seconds"][1:]), 1e-9) for r in a]
+    print("  (a) {} gloo, two ranks sharing one card, {{'model': 2}}: fit, {} epoch, augmentation on: {} steps per "
+          "rank, warp launches per rank {} (1 per step), losses equal across ranks: {}, first epoch within {:.2e} "
+          "relative of one process's (deterministic cuDNN; <= 2e-3), beside one process's own first-epoch spread "
+          "under cuDNN's benchmark algorithms {:.2e} (phase 11); {} steps/s per rank (two ranks sharing one card), "
+          "peaks less baseline {} bytes".format(
+              _card(card), TP_EPOCHS, a[0]["steps"], [r["launches"] for r in a], same_ranks, first, spread,
+              ["%.3f" % v for v in rates], [r["peak"] for r in a]))
+    if first > 2e-3 or not same_ranks or any(r["launches"] != r["steps"] for r in a):
+        raise AssertionError("phase 13(a): the tensor-parallel fit differs from one process")
+    summary["a_tp_8x"] = {"step_loss_rel": rel, "step_grad_error_ratio": float(ratio),
+                          "step_param_error_ratio": float(pratio), "steps_per_rank": a[0]["steps"],
+                          "warp_launches": [r["launches"] for r in a], "max_rel_loss_diff_first_epoch": first,
+                          "benchmark_spread_first_epoch": spread, "steps_per_s_two_ranks_sharing_one_card": rates,
+                          "peak_less_baseline": [r["peak"] for r in a]}
+
+    b = got[0]["b"]
+    ck = load_sharded_checkpoint(os.path.join(workdir, "tp_sharded"))
+    sd, mom = b["whole"]
+    bit_equal = sorted(ck["model-state-dict"]) == sorted(sd) and all(
+        np.array_equal(ck["model-state-dict"][k].numpy(), v) for k, v in sd.items()) and all(
+        np.array_equal(ck["optimizer-state-dict"]["state"][i]["momentum_buffer"].numpy(), v) for i, v in mom.items())
+    restored = all(r["b"]["restored_equal"] for r in got)
+    print("  (b) {} the fit's state saved as a sharded checkpoint at T = 2 ({:.3f} s to save, {:.3f} s to restore on "
+          "a rank) and restored on one process: bit-equal to the gathered state: {}; restored at T = 2, the next "
+          "step equals the live state's (loss {:.6f} and {:.6f}, parameters bit-equal): {}".format(
+              _card(card), b["save_s"], b["load_s"], bit_equal, b["next_loss"], b["restored_loss"], restored))
+    if not (bit_equal and restored):
+        raise AssertionError("phase 13(b): the sharded checkpoint does not round-trip")
+    summary["b_sharded_checkpoint"] = {"whole_restore_bit_equal": bit_equal, "tp_restore_step_equal": restored,
+                                       "save_s": b["save_s"], "load_s": b["load_s"]}
+
+    c, want = got[0]["c"]["batches"], one["c"]
+    labels_equal = all(np.array_equal(g[1], w[1]) for g, w in zip(c, want)) and len(c) == len(want)
+    heat_err = max(float(np.abs(g[2] - w[2]).max()) for g, w in zip(c, want))
+    pad1x = FULLRES_RUNGS[-1][2]
+    print("  (c) {} 1x full-res int8 over {{'spatial': 2}} ({} raw {}^2 frames, {}^2 padded, bands {}; scales from "
+          "the whole frames on every rank): labels equal to one process's int8: {}, heats within {:.2e} (<= 1e-5); "
+          "{:.3f} frames/s (two ranks sharing one card) against {:.3f} for one process; peaks less baseline {} "
+          "bytes".format(_card(card), SPATIAL_FULLRES_FRAMES, FULLRES_DIM, pad1x, _bands(pad1x), labels_equal,
+                         heat_err, got[0]["c"]["fps"], one["c_fps"], [r["c"]["peak"] for r in got]))
+    if not labels_equal or heat_err > 1e-5:
+        raise AssertionError("phase 13(c): int8 on the bands differs from one process's int8")
+    summary["c_int8_bands_1x"] = {"labels_equal": labels_equal, "heats_max_abs": heat_err,
+                                  "frames_per_s_two_ranks_sharing_one_card": got[0]["c"]["fps"],
+                                  "one_process_frames_per_s": one["c_fps"],
+                                  "peak_less_baseline": [r["c"]["peak"] for r in got]}
+
+    summary["d_repairs"] = {}
+    for (name, frame, flags), (mine32, mine64), (one32, one64) in zip(_repairs(), got[0]["d"], one["d"]):
+        rel, ratio, worst = _exactness("13(d) " + name, mine32, one32, one64)
+        g64 = one64[1]
+
+        def worst_share(grads):
+            return max(float(np.abs(grads[k] - g64[k]).max() / np.abs(g64[k]).max()) for k in g64)
+
+        share32, one_share32, share64 = worst_share(mine32[1]), worst_share(one32[1]), worst_share(mine64[1])
+        rows = frame + 2 * _odd_pad() if name.startswith("8x") else TRAIN_PAD
+        print("  (d) {} {}: one step (depth {}, wf {}, {} rows in bands {}, 5 frames) on {{'spatial': 2}}: loss "
+              "within {:.2e} relative of one process (<= 1e-6); float64 on the bands against one process's float64: "
+              "every gradient within {:.2e} of its tensor's largest (<= 1e-6: the outputs' float32 softmax and heats "
+              "round both); float32 against float64: worst gradient error {:.2e} of its tensor's largest, one "
+              "process's own {:.2e} (<= 2x, a floor of 1e-5); per tensor the worst ratio of the two errors {:.3f} ({})".format(
+                  _card(card), name, flags.get("depth", TRAIN_DEPTH), TRAIN_WF, rows, _bands(rows), rel, share64,
+                  share32, one_share32, ratio, worst))
+        if rel > 1e-6 or share64 > 1e-6 or share32 > 2 * max(one_share32, 1e-5):
+            raise AssertionError("phase 13(d): the row-sharded {} step is not as exact as one process's".format(name))
+        summary["d_repairs"][name] = {"loss_rel": rel, "float64_grad_max_share": share64,
+                                      "float32_grad_worst_share": share32, "one_process_float32_worst_share":
+                                      one_share32, "per_tensor_ratio": float(ratio)}
+    return summary, {"tp_training": sum(r["a"]["launches"] for r in got)}
+
+
 def _bands(rows):
     from deepfluoro_tpu_torch.parallel.mesh import row_layout
 
@@ -2398,6 +2750,10 @@ def main(argv=None) -> int:
             ("11 JAX checkpoints and spatial", lambda: phase_spatial(
                 args.seed, workdir, os.path.join(workdir, "fullres_1x.pt"), results["10 distributed"][2],
                 results["1 environment"])),
+            ("13 tensor parallel, sharded checkpoints, int8 bands", lambda: phase_tp(
+                args.seed, workdir, os.path.join(workdir, "fullres_1x.pt"), results["10 distributed"][2],
+                results["11 JAX checkpoints and spatial"][0]["b_spatial_8x"]["benchmark_spread_first_epoch"],
+                results["1 environment"])),
             ("12 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
@@ -2419,6 +2775,7 @@ def main(argv=None) -> int:
         "ladder_1x_training": results["8 ladder"]["1x"],
         **results["10 distributed"][1],
         **results["11 JAX checkpoints and spatial"][1],
+        **results["13 tensor parallel, sharded checkpoints, int8 bands"][1],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
     int8 = results["9 int8"]
@@ -2426,6 +2783,7 @@ def main(argv=None) -> int:
                                                                "convs_total", "int8_float_label_agreement")}))
     print("distributed summary: " + json.dumps(results["10 distributed"][0]))
     print("spatial summary: " + json.dumps(results["11 JAX checkpoints and spatial"][0]))
+    print("tp summary: " + json.dumps(results["13 tensor parallel, sharded checkpoints, int8 bands"][0]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

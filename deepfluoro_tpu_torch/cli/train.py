@@ -29,11 +29,14 @@ axis then spans all P processes. NCCL joins them on CUDA, gloo on the
 CPU.
 
 ``--spatial-devices S`` cuts every frame's rows into S bands, one per
-card, for the large rungs (``fit(shard_spatial=True)``); it composes with
+card, for the large rungs (``fit(shard_spatial=True)``; padded or valid
+convolutions, any frame of at least S rows); it composes with
 ``--dp-devices D`` on one {'data': D, 'spatial': S} mesh of D * S
-processes (``--dp-devices 0``: every card left over). ``--tp-devices``
-(tensor parallelism) is not ported and is refused, alone and with
-``--spatial-devices`` (the JAX package refuses that composition).
+processes (``--dp-devices 0``: every card left over). ``--tp-devices T``
+cuts the convolutions' output channels over T cards (tensor
+parallelism, ``parallel/tensor.py``); it composes with ``--dp-devices D``
+on one {'data': D, 'model': T} mesh of D * T processes, and is refused
+with ``--spatial-devices`` (the JAX package refuses that composition).
 """
 
 from __future__ import annotations
@@ -100,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", help="Fault on the first NaN-producing backward op (torch.autograd.set_detect_anomaly)", action="store_true")
     p.add_argument("--dp-devices", help="shard each batch over this many devices (data parallelism, one process per card); 0 = all devices when any parallel flag is active, 1 = off", type=int, default=1)
     p.add_argument("--spatial-devices", help="also shard image rows over this many devices (for large-resolution training); composes with --dp-devices on one 2-D mesh", type=int, default=1)
-    p.add_argument("--tp-devices", help="tensor parallelism: not ported; any value above 1 is refused", type=int, default=1)
+    p.add_argument("--tp-devices", help="shard conv channels over this many devices (tensor parallelism, one process per card); composes with --dp-devices, not with --spatial-devices", type=int, default=1)
     p.add_argument("--num-processes", help="total process count for multi-host training; run one process per card with the same flags", type=int, default=0)
     p.add_argument("--process-id", help="this process's index in [0, --num-processes)", type=int, default=None)
     p.add_argument("--coordinator", help="multi-host coordinator address host:port (torch.distributed's TCP store on process 0)", type=str, default=None)
@@ -109,35 +112,42 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.tp_devices > 1:
-        raise SystemExit("--tp-devices is not ported (tensor parallelism); {}".format(
-            "nor does it compose with --spatial-devices" if args.spatial_devices > 1 else "use --dp-devices or "
-            "--spatial-devices"))
-    if args.spatial_devices < 1:
-        raise SystemExit("--spatial-devices must be at least 1, got {}".format(args.spatial_devices))
+    for flag in ("spatial_devices", "tp_devices"):
+        if getattr(args, flag) < 1:
+            raise SystemExit("--{} must be at least 1, got {}".format(flag.replace("_", "-"), getattr(args, flag)))
+    if args.tp_devices > 1 and args.spatial_devices > 1:
+        raise SystemExit("--tp-devices does not compose with --spatial-devices: 'spatial' x 'model' is refused, as "
+                         "the JAX package refuses it; combine either with --dp-devices")
     device = "cpu" if args.no_gpu else "cuda"
-    sp = args.spatial_devices
-    dp = max(1, local_device_count(device) // sp) if args.dp_devices <= 0 else args.dp_devices
-    launch(run, args, dp * sp, args.num_processes, args.process_id, args.coordinator, device)
+    inner = args.spatial_devices * args.tp_devices
+    dp = max(1, local_device_count(device) // inner) if args.dp_devices <= 0 else args.dp_devices
+    launch(run, args, dp * inner, args.num_processes, args.process_id, args.coordinator, device)
 
 
 def run(args):
-    """Train on this process (one rank of a data-parallel or a data x
-    spatial group when there are several processes)."""
+    """Train on this process (one rank of a data-parallel, a data x
+    spatial or a data x model group when there are several processes)."""
     world = process_count()
-    sp = args.spatial_devices
+    sp, tp = args.spatial_devices, args.tp_devices
+    inner = sp * tp
     mesh = None
-    if world > 1 or sp > 1:
-        if world % sp:
-            raise SystemExit("--spatial-devices {} does not divide the process count {}".format(sp, world))
-        dp = world // sp
+    if world > 1 or inner > 1:
+        if world % inner:
+            raise SystemExit("--spatial-devices {} x --tp-devices {} does not divide the process count {}".format(
+                sp, tp, world))
+        dp = world // inner
         # --dp-devices 1 (the default) stands for every process under
         # torchrun or the process flags, as before; beside --spatial-devices
-        # it means one data slice
-        if args.dp_devices not in (0, dp) and not (args.dp_devices == 1 and (sp == 1 or dp == 1)):
-            raise SystemExit("--dp-devices {} x --spatial-devices {} must equal the process count {}: the port runs "
-                             "one process per card".format(args.dp_devices, sp, world))
-        mesh = make_mesh({"data": dp, "spatial": sp} if sp > 1 else {"data": world})
+        # or --tp-devices it means one data slice
+        if args.dp_devices not in (0, dp) and not (args.dp_devices == 1 and (inner == 1 or dp == 1)):
+            raise SystemExit("--dp-devices {} x --spatial-devices {} x --tp-devices {} must equal the process count "
+                             "{}: the port runs one process per card".format(args.dp_devices, sp, tp, world))
+        if sp > 1:
+            mesh = make_mesh({"data": dp, "spatial": sp})
+        elif tp > 1:
+            mesh = make_mesh({"data": dp, "model": tp})
+        else:
+            mesh = make_mesh({"data": world})
         if is_writer():
             print("device mesh: {}".format(mesh.axes), flush=True)
     train_pats = [int(i) for i in args.train_pats.split(",")]

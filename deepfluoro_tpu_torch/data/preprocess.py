@@ -290,17 +290,13 @@ def make_fused_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, apply
 def fullres_shard(model, mesh, ds_factor: int, pad_dim: int, full_hw):
     """This process's band (``parallel/mesh.py::RowShard``) of the padded
     network input at ``ds_factor`` on ``mesh``'s 'spatial' axis, with
-    ``model``'s convolutions set to it (``parallel/sharding.py::
-    shard_rows``); ValueError where the frame does not cut into bands of
-    whole coarsest-level blocks. Returns (shard, (hc, wc))."""
-    from deepfluoro_tpu_torch.parallel.mesh import row_shard
+    ``model``'s layers set to it (``parallel/sharding.py::shard_rows``).
+    Returns (shard, (hc, wc))."""
     from deepfluoro_tpu_torch.parallel.sharding import shard_rows
 
     hc, wc = fullres_crop_size(ds_factor, tuple(int(v) for v in full_hw))
     rows = hc + 2 * calc_pad_amount(pad_dim, hc) if pad_dim > hc else hc
-    shard = row_shard(mesh, rows, 2 ** (len(model.down_path) - 1))
-    shard_rows(model, shard)
-    return shard, (hc, wc)
+    return shard_rows(model, mesh, rows), (hc, wc)
 
 
 def make_sharded_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, mesh, apply_fn=None):
@@ -310,26 +306,25 @@ def make_sharded_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, mes
     the raw-frame prep on them whole (crop, log, rot-180, resize, pad,
     z-norm: a small share of the work, and the rot-180 and the resize mix
     rows), keeps its band of rows and runs ``model`` (eval mode, its
-    convolutions set to the band: ``fullres_shard``) with halo exchanges;
-    the argmax is row-local. The labels and the raw heats are gathered, so
+    layers set to the band: ``fullres_shard``) with row exchanges; the
+    argmax is row-local. The labels and the raw heats are gathered, so
     every process returns the whole batch: same contract as
     ``make_fused_fullres_infer``. The batch size must divide by the 'data'
-    axis. ``apply_fn`` (int8 forwards) is not supported on a 'spatial'
-    mesh yet: NotImplementedError."""
-    if apply_fn is not None:
-        raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
-                                  "'--int8 under the spatial axis')")
+    axis. ``apply_fn(x)`` (an int8 forward of ``model``) replaces
+    ``model(x)`` on the band."""
     from deepfluoro_tpu_torch.parallel.sharding import gather_bands
 
     prep, _ = make_fullres_prep(ds_factor, pad_dim, full_hw)
     shard, crop_hw = fullres_shard(model, mesh, ds_factor, pad_dim, full_hw)
     data = mesh.axis("data")
+    if apply_fn is None:
+        apply_fn = model
 
     @torch.no_grad()
     def infer(projs: torch.Tensor, rot_flags: torch.Tensor):
         b = int(projs.shape[0])
         local = data.rows(b)
-        out = model(prep(projs[local], rot_flags[local])[:, :, shard.start : shard.stop])
+        out = apply_fn(prep(projs[local], rot_flags[local])[:, :, shard.start : shard.stop])
         seg, heats = out if isinstance(out, tuple) else (out, None)
         labels = shard.crop(seg, crop_hw).argmax(dim=1).to(torch.int32)
         labels = gather_bands(labels, shard, local, b, crop_hw).to(torch.uint8)
@@ -346,17 +341,18 @@ def make_quantized_fullres_infer(model, ds_factor: int, pad_dim: int, full_hw, c
     prep, weights quantized per output channel (the JAX docstring says per
     tensor; its code, like this, quantizes per channel), and the U-Net's
     convolutions int8 (``infer/quantized.py``), the finest
-    ``float_levels`` levels in float. Same return contract. A ``mesh``
-    (JAX: the sharded int8 program) is not ported yet:
-    NotImplementedError."""
+    ``float_levels`` levels in float. Same return contract. With a
+    ``mesh`` (JAX: the sharded int8 program) the scales come from the
+    whole calibration frames, which every process passes, before
+    ``make_sharded_fullres_infer`` sets the model to its band."""
     from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
-    if mesh is not None:
-        raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
-                                  "'--int8 under the spatial axis')")
     if calib_projs.ndim != 3 or calib_projs.shape[0] < 1:
         raise ValueError("int8 calibration needs at least one (B, H, W) raw frame; got shape {}".format(
             tuple(calib_projs.shape)))
     prep, _ = make_fullres_prep(ds_factor, pad_dim, full_hw)
+    model.set_bands(None)
     (apply_fn,) = int8_forwards([model], [prep(calib_projs, calib_rot_flags)], float_levels)
+    if mesh is not None:
+        return make_sharded_fullres_infer(model, ds_factor, pad_dim, full_hw, mesh, apply_fn=apply_fn)
     return make_fused_fullres_infer(model, ds_factor, pad_dim, full_hw, apply_fn=apply_fn)

@@ -18,9 +18,9 @@ order and in the preprocessed orientation, so ``est_lands_csv`` and
 ``compute_actual_dice_on_test`` read them against a preprocessed archive
 of the same factor. ``quantized`` runs the members' int8 forwards
 (``infer/quantized.py``), calibrated on the first batch of frames run
-through the same prep.
-
-Not ported: the JAX module's meshes.
+through the same prep. A mesh of 'data' and 'spatial' processes
+(``fullres_batches(mesh=...)``, float or int8) splits each batch's frames
+over 'data' and their rows over 'spatial'.
 """
 
 from __future__ import annotations
@@ -97,14 +97,17 @@ def fullres_batches(
     With ``quantized`` the forwards are int8 (the finest
     ``int8_float_levels`` levels in float), with activation scales
     calibrated here, before the generator starts, on the first
-    ``min(batch_size, n)`` frames through the same prep.
+    ``min(batch_size, n)`` whole frames through the same prep (on a mesh
+    too: every process reads them and gets the same scales, bit for bit,
+    before its members are set to bands).
 
     With a ``mesh`` of 'data' and 'spatial' axes every process calls this
     in lockstep with the whole ensemble and reads the same frames; each
     runs its data slice of every batch (the batch size must divide by the
     'data' axis) on its band of rows (the module docstring). Process 0
     yields the arrays; the others yield (start, None, None). The members'
-    convolutions stay set to the bands."""
+    layers stay set to the bands (a later call without a mesh clears
+    them)."""
     if n == 0:
         raise ValueError("no projections selected")
     hc = fullres_crop_size(ds_factor, full_hw)[0]
@@ -117,27 +120,27 @@ def fullres_batches(
     batch_size = min(batch_size, n)
     dev = next(models[0].parameters()).device
     for model in models:
-        model.eval()
+        model.eval().set_bands(None)
     if mesh is not None:
-        if quantized:
-            raise NotImplementedError("int8 full-res inference on a 'spatial' mesh is not ported yet (ROADMAP §1, "
-                                      "'--int8 under the spatial axis')")
         if set(mesh.axis_names) - {"data", "spatial"}:
             raise ValueError("full-res inference shards over 'data' and 'spatial' axes only; got {}".format(mesh.axes))
         if batch_size % mesh.axis("data").size:
             raise ValueError("batch size {} does not shard evenly over the {}-way 'data' mesh axis".format(
                 batch_size, mesh.axis("data").size))
-        for model in models:
-            shard, _ = fullres_shard(model, mesh, ds_factor, pad_img_dim, full_hw)
-        run = _sharded_run(models, prep, orig_hw, num_lands, mesh, shard)
-        return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size, is_writer())
     fwds = models
     if quantized:
+        # scales from whole frames, before any member is set to bands:
+        # every process reads the same frames and computes the same scales
         from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
         projs, rots = read_batch(0, batch_size)
         fwds = int8_forwards(models, [prep(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))],
                              int8_float_levels)
+    if mesh is not None:
+        for model in models:
+            shard, _ = fullres_shard(model, mesh, ds_factor, pad_img_dim, full_hw)
+        run = _sharded_run(fwds, prep, orig_hw, num_lands, mesh, shard)
+        return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size, is_writer())
 
     def run(projs, rots):
         _, heats, labels = ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
@@ -147,9 +150,10 @@ def fullres_batches(
 
 
 def _band_member_mean(models, x, shard, orig_hw, num_lands: int):
-    """The member means of one band's rows of the crop: softmax seg and
-    heats min-max normalized per image over the whole frame (the band
-    minima and maxima reduced over 'spatial')."""
+    """The member means of one band's rows of the crop (``models``:
+    modules or int8 forwards): softmax seg and heats min-max normalized
+    per image over the whole frame (the band minima and maxima reduced
+    over 'spatial'; a band with no rows of the crop gives none)."""
     seg_sum = heat_sum = None
     for model in models:
         out = model(x)
@@ -158,7 +162,10 @@ def _band_member_mean(models, x, shard, orig_hw, num_lands: int):
         seg_sum = seg if seg_sum is None else seg_sum + seg
         if heats is not None:
             heats = shard.crop(heats, orig_hw)
-            ext = torch.cat([heats.amax(dim=(1, 2, 3)), -heats.amin(dim=(1, 2, 3))])
+            if heats.shape[2]:
+                ext = torch.cat([heats.amax(dim=(1, 2, 3)), -heats.amin(dim=(1, 2, 3))])
+            else:
+                ext = heats.new_full((2 * heats.shape[0],), -torch.inf)
             if shard.axis.size > 1:
                 dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=shard.axis.group)
             b = heats.shape[0]

@@ -49,8 +49,9 @@ import torch.nn.functional as F
 
 from deepfluoro_tpu_torch.compat.from_jax import _entries
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward
-from deepfluoro_tpu_torch.ops.image import center_crop
+from deepfluoro_tpu_torch.models.unet import crop_to
 from deepfluoro_tpu_torch.ops.int8_conv import gemm_weight, int8_conv2d, int8_conv_transpose2x2
+from deepfluoro_tpu_torch.parallel.halo import band_op
 
 _QMAX = 127.0
 
@@ -142,25 +143,37 @@ class _Engine:
             y = y + mod.bias.float().view(1, -1, 1, 1)
         return y.to(self.dtype)
 
-    def conv(self, mod: nn.Conv2d, xrep):
+    def conv(self, mod: nn.Conv2d, xrep, plan=None):
         """``mod``'s convolution (stride, padding and padding mode read from
-        it) on the int8 path for an (int8, scale) input, else in float."""
+        it) on the int8 path for an (int8, scale) input, else in float. On
+        a band of rows (a ``Conv3x3``'s own plan, or ``plan``: a stride-2
+        downsampling's) it convolves its window unpadded in rows
+        (``parallel/halo.py::band_op``); the window's rows travel as int8
+        where the input is quantized (one scale per tensor)."""
+        plan = getattr(mod, "rows", None) or plan
+        ph, pw = mod.padding
+        padding = (ph, pw) if getattr(mod, "rows", None) is None else (0, pw)
+        k = mod.kernel_size[0]
         if isinstance(xrep, tuple):
-            return self._int8(mod, xrep, lambda xq, wq, wmat: int8_conv2d(
-                xq, wq, mod.stride, mod.padding, mod.padding_mode, wmat), False)
-        x = xrep.to(self.dtype)
-        padding = mod.padding
-        if mod.padding_mode == "circular":
-            ph, pw = mod.padding
-            x = F.pad(x, (pw, pw, ph, ph), mode="circular")
-            padding = 0
+            return self._int8(mod, xrep, lambda xq, wq, wmat: band_op(lambda w: int8_conv2d(
+                w, wq, mod.stride, padding, mod.padding_mode, wmat), xq, plan, k), False)
         b = None if mod.bias is None else mod.bias.to(self.dtype)
-        return F.conv2d(x, mod.weight.to(self.dtype), b, mod.stride, padding)
 
-    def conv_transpose(self, mod: nn.ConvTranspose2d, xrep):
+        def fn(x):
+            p = padding
+            if mod.padding_mode == "circular":
+                x = F.pad(x, (p[1], p[1], p[0], p[0]), mode="circular")
+                p = 0
+            return F.conv2d(x, mod.weight.to(self.dtype), b, mod.stride, p)
+
+        return band_op(fn, xrep.to(self.dtype), plan, k)
+
+    def conv_transpose(self, mod: nn.ConvTranspose2d, xrep, plan=None):
         if isinstance(xrep, tuple):
-            return self._int8(mod, xrep, int8_conv_transpose2x2, True)
-        return F.conv_transpose2d(xrep.to(self.dtype), mod.weight.to(self.dtype), mod.bias.to(self.dtype), mod.stride)
+            return self._int8(mod, xrep, lambda xq, wq, wmat: band_op(
+                lambda w: int8_conv_transpose2x2(w, wq, wmat), xq, plan), True)
+        return band_op(lambda x: F.conv_transpose2d(x, mod.weight.to(self.dtype), mod.bias.to(self.dtype),
+                                                    mod.stride), xrep.to(self.dtype), plan)
 
     def batch_norm(self, bn: nn.BatchNorm2d, x):
         """Inference-mode BatchNorm on the running statistics in JAX's op
@@ -193,17 +206,17 @@ class _Engine:
             else:
                 out = self.batch_norm(layer, out)
         if blk.res_conv1x1 is not None:
-            out = out + center_crop(self.conv(blk.res_conv1x1, in_rep), out.shape[-2:])
+            out = out + crop_to(self.conv(blk.res_conv1x1, in_rep), blk.res_rows, out.shape[-2:])
         return out
 
     def up_block(self, name, up, x, bridge):
         if isinstance(up.up, nn.ConvTranspose2d):
             rep = self.qpoint("{}/up_in".format(name), x)
-            y = self.conv_transpose(up.up, rep)
+            y = self.conv_transpose(up.up, rep, up.up_rows)
         else:
-            y = up.up[0](x.to(self.dtype))
+            y = band_op(up.up[0], x.to(self.dtype), up.up_rows)
             y = self.conv(up.up[1], self.qpoint("{}/up_in".format(name), y))
-        cat = torch.cat([y, center_crop(bridge, y.shape[-2:])], dim=1)
+        cat = torch.cat([y, crop_to(bridge, up.bridge_rows, y.shape[-2:])], dim=1)
         return self.conv_block("{}/conv_block".format(name), up.conv_block, cat)
 
     def forward(self, x):
@@ -216,9 +229,9 @@ class _Engine:
             if i != depth - 1:
                 blocks.append(x)
                 if m.max_pool:
-                    x = F.max_pool2d(x, 2)
+                    x = band_op(lambda t: F.max_pool2d(t, 2), x, m.pool_rows[i], 2)
                 else:
-                    x = self.conv(m.downsample_convs[i], self.qpoint("downsample_{}/x".format(i), x))
+                    x = self.conv(m.downsample_convs[i], self.qpoint("downsample_{}/x".format(i), x), m.pool_rows[i])
         for j, up in enumerate(m.up_path):
             x = self.up_block("up_{}".format(j), up, x, blocks[-j - 1])
 
@@ -230,7 +243,7 @@ class _Engine:
         feat = x
         for d, conv in enumerate(m.lands_block):
             feat = self.conv(conv, self.qpoint("lands_block/x{}".format(d), feat))
-        h = torch.cat([feat, center_crop(seg_logits, feat.shape[-2:]).to(self.dtype)], dim=1)
+        h = torch.cat([feat, crop_to(seg_logits, m.lands_rows, feat.shape[-2:]).to(self.dtype)], dim=1)
         for i, conv in enumerate(m.lands_1x1):
             h = self.conv(conv, self.qpoint("lands_1x1_{}/x".format(i), h))
         return seg, h.float()

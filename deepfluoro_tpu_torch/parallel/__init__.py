@@ -8,7 +8,8 @@ from deepfluoro_tpu_torch.parallel.multihost import (
     process_index,
     run_ranks,
 )
-from deepfluoro_tpu_torch.parallel.sharding import average_gradients, sync_batch_norm
+from deepfluoro_tpu_torch.parallel.sharding import average_gradients, shard_rows, sync_batch_norm
+from deepfluoro_tpu_torch.parallel.tensor import gather_state, shard_channels
 
 __all__ = [
     "Axis",
@@ -22,5 +23,8 @@ __all__ = [
     "process_index",
     "run_ranks",
     "average_gradients",
+    "shard_rows",
     "sync_batch_norm",
+    "gather_state",
+    "shard_channels",
 ]

@@ -8,10 +8,14 @@ Axis conventions, as in the JAX package:
                 ensemble inference: each process owns K / size of them;
   'spatial'  -- image-row sharding of large frames (the 2x and 1x rungs):
                 each process holds a band of rows of every frame of its
-                data slice, and the U-Net's convolutions trade edge rows
-                with the neighbouring bands (``parallel/halo.py``). It is
+                data slice, and the U-Net's layers trade the rows they
+                need with the other bands (``parallel/halo.py``). It is
                 laid out after 'data', as the JAX package's meshes are
-                ({'data': D, 'spatial': S}: rank d * S + s).
+                ({'data': D, 'spatial': S}: rank d * S + s);
+  'model'    -- tensor parallelism: each process holds its share of the
+                output channels of every convolution that T divides
+                (``parallel/tensor.py``), laid out after 'data'
+                ({'data': D, 'model': T}: rank d * T + t).
 
 The port runs one process per card, so a mesh is laid over the ranks of
 the default process group, row-major in the order the axes are given,
@@ -145,21 +149,26 @@ def make_mesh(axes: dict[str, int] | None = None) -> Mesh:
 
 def row_layout(rows: int, parts: int, multiple: int) -> tuple[int, ...]:
     """The rows of each of ``parts`` bands of a frame of ``rows`` rows, in
-    order: whole blocks of ``multiple`` rows, shared as evenly as they go,
-    the larger bands first. With ``multiple = 2**(depth - 1)`` every band
-    starts and ends on a block of the U-Net's coarsest level, so each 2x2
-    stride-2 downsampling and each 2x2 transposed upsampling stays inside
-    a band. 1440 = 45 x 32 over 2 -> (736, 704); 736 = 23 x 32 over 2 ->
-    (384, 352). Raises ValueError where the frame cannot be cut so:
-    nothing is padded."""
-    if rows % multiple:
-        raise ValueError("{} rows cannot be cut into bands of whole {}-row blocks (the U-Net's coarsest level): "
-                         "row sharding needs a multiple of {}".format(rows, multiple, multiple))
+    order. Where the frame holds at least ``parts`` whole blocks of
+    ``multiple`` rows, the bands are whole blocks, shared as evenly as they
+    go, the larger bands first, and the rows past the last whole block join
+    the last band: with ``multiple = 2**(depth - 1)`` every band but the
+    last starts and ends on a block of the U-Net's coarsest level, so each
+    stride-2 downsampling and each 2x upsampling stays inside a band (only
+    the 3x3 convolutions trade rows). 1440 = 45 x 32 over 2 -> (736, 704);
+    736 = 23 x 32 over 2 -> (384, 352); 193 = 6 x 32 + 1 over 2 -> (96,
+    97). Otherwise the rows are shared as evenly as they go (64 over 3 at
+    32 -> (22, 21, 21)). Raises ValueError for fewer rows than bands."""
+    if rows < parts:
+        raise ValueError("{} rows cannot be cut into {} bands: too few".format(rows, parts))
     blocks = rows // multiple
     if blocks < parts:
-        raise ValueError("{} rows hold {} blocks of {} rows: too few for {} bands".format(rows, blocks, multiple, parts))
+        base, extra = divmod(rows, parts)
+        return tuple(base + (i < extra) for i in range(parts))
     base, extra = divmod(blocks, parts)
-    return tuple((base + (i < extra)) * multiple for i in range(parts))
+    out = [(base + (i < extra)) * multiple for i in range(parts)]
+    out[-1] += rows - blocks * multiple
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +176,11 @@ class RowShard:
     """This rank's band of a row-sharded frame: rows ``[start, stop)`` of
     ``total``, over the 'spatial' ``axis``; ``joint`` is 'data' x
     'spatial' (the group BatchNorm and the gradient sum span) and
-    ``counts`` the rows of each of ``joint``'s ranks, in group order."""
+    ``counts`` the frame rows of each of ``joint``'s ranks, in group
+    order. ``out`` is (start, stop, total) of the network's output map
+    (``parallel/sharding.py::shard_rows``), whose rows the band holds in
+    its own frame coordinates; empty for the frame's own rows (a 'same'
+    U-Net)."""
 
     axis: Axis
     joint: Axis
@@ -175,30 +188,22 @@ class RowShard:
     stop: int
     total: int
     counts: tuple
+    out: tuple = ()
 
     def window(self, n: int) -> tuple[slice, slice]:
-        """A center crop of the frame to ``n`` rows (``ops/image.py::
+        """A center crop of the output map to ``n`` rows (``ops/image.py::
         center_crop``'s offset), as this band sees it: (the slice of this
-        band's rows inside the crop, the slice of the crop's rows this band
-        holds). Either may be empty."""
-        off = (self.total - n) // 2
-        lo, hi = max(self.start, off), min(self.stop, off + n)
+        band's output rows inside the crop, the slice of the crop's rows
+        this band holds). Either may be empty."""
+        start, stop, total = self.out or (self.start, self.stop, self.total)
+        off = (total - n) // 2
+        lo, hi = max(start, off), min(stop, off + n)
         hi = max(hi, lo)
-        return slice(lo - self.start, hi - self.start), slice(lo - off, hi - off)
+        return slice(lo - start, hi - start), slice(lo - off, hi - off)
 
     def crop(self, t, crop_hw):
         """This band's rows of a network output (B, C, rows, W), cut to
-        the band's part of the frame's center crop to ``crop_hw``."""
+        the band's part of the output's center crop to ``crop_hw``."""
         rows, _ = self.window(crop_hw[0])
         c0 = (t.shape[-1] - crop_hw[1]) // 2
         return t[:, :, rows, c0 : c0 + crop_hw[1]]
-
-
-def row_shard(mesh: Mesh, rows: int, multiple: int) -> RowShard:
-    """This rank's ``RowShard`` of a ``rows``-row frame on ``mesh``'s
-    'spatial' axis (``row_layout``)."""
-    axis, joint = mesh.axis("spatial"), mesh.joint("data", "spatial")
-    layout = row_layout(rows, axis.size, multiple)
-    start = sum(layout[: axis.index])
-    counts = tuple(layout[mesh.coords(r).get("spatial", 0)] for r in joint.ranks) if joint.size > 1 else ()
-    return RowShard(axis, joint, start, start + layout[axis.index], rows, counts)

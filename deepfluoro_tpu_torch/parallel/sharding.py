@@ -12,15 +12,16 @@
 - **Ensemble (folds, members)**: independent per process; the per-fold
   losses and the member sums are gathered or summed.
 - **Spatial**: each process holds a band of rows of its data slice's
-  frames (``parallel/mesh.py::RowShard``); the U-Net's 3x3 convolutions
-  trade halo rows (``parallel/halo.py``, ``shard_rows``). BatchNorm's
-  statistics span 'data' x 'spatial', each rank weighted by its rows,
-  which the layout gives on the host. The losses' per-image sums are
-  summed over the bands (``spatial_sum``), so every band of a data slice
-  computes that slice's loss. The sums' backward sums the bands'
-  gradients too, so each band's gradient is S times its rows' share, and
-  the step's mean over 'data' x 'spatial' is the gradient of the global
-  batch (``average_gradients``).
+  frames (``parallel/mesh.py::RowShard``); the U-Net's layers that map
+  rows take their windows by row exchanges (``parallel/halo.py``,
+  ``shard_rows``). BatchNorm's statistics span 'data' x 'spatial', each
+  rank weighted by its rows of the layer, which the layout gives on the
+  host. The losses' per-image sums are summed over the bands
+  (``spatial_sum``), so every band of a data slice computes that slice's
+  loss. The sums' backward sums the bands' gradients too, so each band's
+  gradient is S times its rows' share, and the step's mean over 'data' x
+  'spatial' is the gradient of the global batch (``average_gradients``).
+- **Model** (tensor parallelism): ``parallel/tensor.py``.
 
 Every collective here is an ``all_reduce``, which gloo also takes on CUDA
 tensors (two gloo ranks can share one card; NCCL refuses that); a gather
@@ -30,10 +31,12 @@ rows (exact: x + 0 = x).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
 
-from deepfluoro_tpu_torch.parallel.mesh import Axis
+from deepfluoro_tpu_torch.parallel.mesh import Axis, row_layout
 
 
 def _flag_device(group):
@@ -160,17 +163,18 @@ def global_batch_stats(x: torch.Tensor, group, counts=()):
     batches of every rank of ``group``, in float64, and the global count
     of values per channel. Every rank's batch has the shape of this one
     (the data axis splits each global batch evenly), or, with ``counts``
-    (the frame rows each rank of the group holds, in group order: a
-    row-sharded frame), the shape of this one with the rows scaled by
-    its count; so every count is known here and the host waits on
-    nothing. Each rank's (mean, M2) is gathered and combined by Chan's
-    rule, weighted by the counts, so no rank's sum of squares cancels."""
+    (the rows of this feature map each rank of the group holds, in group
+    order: a row-sharded frame, ``parallel/halo.py::Bands.counts``), the
+    shape of this one with its own rows; so every count is known here and
+    the host waits on nothing. A rank may hold no rows. Each rank's (mean,
+    M2) is gathered and combined by Chan's rule, weighted by the counts,
+    so no rank's sum of squares cancels."""
     dims = (0, 2, 3)
     c = x.shape[1]
-    n_local = x.numel() // c
+    n_local = x.shape[0] * x.shape[2] * x.shape[3]
     size = dist.get_world_size(group)
     me = dist.get_rank(group)
-    mean = torch.sum(x, dims, dtype=torch.float64) / n_local
+    mean = torch.sum(x, dims, dtype=torch.float64) / max(n_local, 1)
     m2 = torch.sum(torch.square(x - mean.to(x.dtype)[None, :, None, None]), dims, dtype=torch.float64)
     stats = x.new_zeros((size, 2 * c), dtype=torch.float64)
     stats[me] = torch.cat([mean, m2])
@@ -181,10 +185,8 @@ def global_batch_stats(x: torch.Tensor, group, counts=()):
         g_m2 = m2s.sum(0) + n_local * torch.square(means - g_mean).sum(0)
         n = n_local * size
         return g_mean, g_m2 / n, n
-    # this level's rows of rank r: its frame rows over the level's stride
-    rows = x.shape[2]
-    per_row = n_local // rows
-    ns = [per_row * (counts[r] * rows // counts[me]) for r in range(size)]
+    per_row = x.shape[0] * x.shape[3]
+    ns = [per_row * counts[r] for r in range(size)]
     n = sum(ns)
     w = torch.tensor(ns, dtype=torch.float64, device=x.device)[:, None]
     g_mean = (means * w).sum(0) / n
@@ -203,7 +205,7 @@ class SyncBatchNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, mean, invstd, n, group):
         shape = (1, -1, 1, 1)
-        xf = x.float()
+        xf = x.to(mean.dtype)
         y = (xf - mean.view(shape)) * invstd.view(shape) * weight.view(shape) + bias.view(shape)
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.n, ctx.group = n, group
@@ -214,8 +216,8 @@ class SyncBatchNormFn(torch.autograd.Function):
         x, weight, mean, invstd = ctx.saved_tensors
         shape = (1, -1, 1, 1)
         dims = (0, 2, 3)
-        g = grad_out.float()
-        x_hat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        g = grad_out.to(mean.dtype)
+        x_hat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
         sum_g = g.sum(dims)
         sum_gx = (g * x_hat).sum(dims)
         both = torch.cat([sum_g, sum_gx])
@@ -226,37 +228,44 @@ class SyncBatchNormFn(torch.autograd.Function):
         return grad_x.to(x.dtype), sum_gx, sum_g, None, None, None, None
 
 
-def sync_batch_norm(model: torch.nn.Module, axis: Axis, counts=()) -> None:
+def sync_batch_norm(model: torch.nn.Module, axis: Axis) -> None:
     """Make every ``models/unet.py::BatchNorm2d`` of ``model`` compute its
     train-mode statistics over ``axis``'s global batch (JAX: the DP step's
-    BatchNorm sees the whole sharded batch); ``counts`` as
-    ``global_batch_stats``'s, for row-sharded frames. A size-1 axis leaves
-    the plain cuDNN path."""
+    BatchNorm sees the whole sharded batch). A size-1 axis leaves the
+    plain cuDNN path. ``shard_rows`` sets each layer's row counts."""
     from deepfluoro_tpu_torch.models.unet import BatchNorm2d
 
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.group = axis.group if axis.size > 1 else None
-            m.counts = tuple(counts) if axis.size > 1 else ()
+            m.counts = ()
 
 
-def shard_rows(model: torch.nn.Module, shard) -> None:
-    """Run ``model`` (a ``models/unet.py::UNet``) on bands of rows over
-    ``shard``'s 'spatial' axis (a ``RowShard``): each 3x3 convolution
-    takes a one-row halo by its padding mode, and train-mode BatchNorm's
-    statistics span 'data' x 'spatial'. The U-Net must pad its
-    convolutions (a valid convolution would shrink bands unevenly) and
-    upsample with transposed convolutions (a bilinear upsampling mixes
-    rows across bands): ValueError otherwise."""
-    from deepfluoro_tpu_torch.models.unet import Conv3x3
+def shard_rows(model: torch.nn.Module, mesh, rows: int):
+    """Run ``model`` (a ``models/unet.py::UNet``) on bands of rows of a
+    ``rows``-row frame over ``mesh``'s 'spatial' axis, and return this
+    rank's ``RowShard``. The bands are ``parallel/mesh.py::row_layout``'s
+    (whole coarsest-level blocks where the frame allows); every layer that
+    maps rows takes its window by the plan ``UNet.set_bands`` makes
+    (``parallel/halo.py``); train-mode BatchNorm's statistics span 'data'
+    x 'spatial', each rank weighted by its rows of each layer. The shard's
+    ``out`` is the band's rows of the network's output. Padded or valid
+    convolutions, 'upconv' or 'upsample', any frame of at least one row
+    per band."""
+    from deepfluoro_tpu_torch.parallel.halo import Bands
+    from deepfluoro_tpu_torch.parallel.mesh import RowShard
 
-    convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
-    if shard.axis.size > 1:
-        if any(m.padding != (1, 1) for m in convs):
-            raise ValueError("row sharding needs padded convolutions (--unet-padding): a valid convolution shrinks "
-                             "the bands")
-        if any(isinstance(m, torch.nn.Upsample) for m in model.modules()):
-            raise ValueError("row sharding needs up_mode 'upconv': a bilinear upsampling mixes rows across bands")
-    for m in convs:
-        m.spatial = shard.axis
-    sync_batch_norm(model, shard.joint, shard.counts)
+    axis, joint = mesh.axis("spatial"), mesh.joint("data", "spatial")
+    layout = row_layout(rows, axis.size, 2 ** (len(model.down_path) - 1))
+    bounds = [0]
+    for n in layout:
+        bounds.append(bounds[-1] + n)
+    spatial_of = tuple(mesh.coords(r).get("spatial", 0) for r in joint.ranks)
+    shard = RowShard(axis, joint, bounds[axis.index], bounds[axis.index + 1], rows,
+                     tuple(layout[s] for s in spatial_of) if joint.size > 1 else ())
+    if axis.size == 1:
+        model.set_bands(None)
+        sync_batch_norm(model, mesh.axis("data"))
+        return shard
+    sync_batch_norm(model, joint)
+    return dataclasses.replace(shard, out=model.set_bands(Bands(axis, bounds, joint, spatial_of)))

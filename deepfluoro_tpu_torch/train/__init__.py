@@ -4,8 +4,10 @@ from deepfluoro_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoi
 from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, train_step
 from deepfluoro_tpu_torch.train.loop import fit
 from deepfluoro_tpu_torch.train.multifold import fit_multifold
+from deepfluoro_tpu_torch.train.sharded_checkpoint import load_sharded_checkpoint, save_sharded_checkpoint
 
 __all__ = [
     "TrainConfig", "build_model", "ReduceLROnPlateau", "WarmRestartLR", "load_checkpoint",
     "save_checkpoint", "eval_losses", "make_optimizer", "train_step", "fit", "fit_multifold",
+    "load_sharded_checkpoint", "save_sharded_checkpoint",
 ]

@@ -67,6 +67,16 @@ def _pinned(obj):
 
 def _write(path: str, meta: dict, model_sd, optimizer_sd, sched_state, epoch, best_valid_loss, last_loss,
            num_restarts, train_idx, valid_idx) -> None:
+    ck = payload(meta, model_sd, optimizer_sd, sched_state, epoch, best_valid_loss, last_loss, num_restarts, train_idx,
+                 valid_idx)
+    tmp = "{}.tmp".format(path)
+    torch.save(ck, tmp)
+    os.replace(tmp, path)
+
+
+def payload(meta: dict, model_sd, optimizer_sd, sched_state, epoch, best_valid_loss, last_loss, num_restarts,
+            train_idx, valid_idx) -> dict:
+    """A checkpoint's dict (the layout this module's docstring gives)."""
     ck = dict(meta)
     ck.update(
         {
@@ -82,9 +92,7 @@ def _write(path: str, meta: dict, model_sd, optimizer_sd, sched_state, epoch, be
             "valid-idx": [] if valid_idx is None else [int(i) for i in valid_idx],
         }
     )
-    tmp = "{}.tmp".format(path)
-    torch.save(ck, tmp)
-    os.replace(tmp, path)
+    return ck
 
 
 def save_checkpoint(
@@ -120,7 +128,8 @@ class AsyncCheckpointer:
     """Checkpoint writes on a worker thread, so the next epoch trains while
     a file serialises.
 
-    ``save`` takes ``save_checkpoint``'s arguments. Before it returns it
+    ``save`` takes ``save_checkpoint``'s arguments, or the state dicts in
+    place of the model and the optimizer. Before it returns it
     copies every tensor of the model's and the optimizer's state on their
     device, in stream order (``torch.optim.SGD`` updates parameters in
     place, so a later read would see later weights); the worker waits for
@@ -169,11 +178,14 @@ class AsyncCheckpointer:
             self._thread.start()
         self._q.put((self._gen, fn, args))
 
-    def save(self, path: str, cfg: TrainConfig, model: torch.nn.Module, optimizer: torch.optim.Optimizer | None = None,
+    def save(self, path: str, cfg: TrainConfig, model: torch.nn.Module | dict,
+             optimizer: torch.optim.Optimizer | dict | None = None,
              sched_state: dict | None = None, epoch: int = 0, best_valid_loss: float | None = None,
              last_loss: float | None = None, num_restarts: int = 0, train_idx=None, valid_idx=None) -> None:
         meta, sched_state = cfg.to_checkpoint_meta(), dict(sched_state or {})
-        snapshot = (_clone(model.state_dict()), None if optimizer is None else _clone(optimizer.state_dict()))
+        model_sd = model if isinstance(model, dict) else model.state_dict()
+        optimizer_sd = optimizer if optimizer is None or isinstance(optimizer, dict) else optimizer.state_dict()
+        snapshot = (_clone(model_sd), None if optimizer_sd is None else _clone(optimizer_sd))
         done = None
         first = next(iter(snapshot[0].values()), None)
         if first is not None and first.is_cuda:

@@ -28,7 +28,9 @@ over the processes, and process 0 alone writes files. With a 'spatial'
 axis too and ``shard_spatial`` (JAX: ``fit(mesh=..., shard_spatial=
 True)``), each frame's rows are cut into bands over 'spatial' for the
 network (``train/step.py``; ``parallel/halo.py``), the 2x and 1x rungs'
-layout.
+layout. With a 'model' axis (JAX: ``fit`` on a mesh with 'model'), the
+parameters, BatchNorm statistics and optimizer state are cut by output
+channel over its processes (tensor parallelism, ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ from deepfluoro_tpu_torch.data.hdf5 import (
 )
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator, PrefetchIterator
 from deepfluoro_tpu_torch.ops.image import calc_pad_amount
-from deepfluoro_tpu_torch.parallel.mesh import Axis, row_shard
+from deepfluoro_tpu_torch.parallel.mesh import Axis
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
+from deepfluoro_tpu_torch.parallel.tensor import gather_state, shard_channels, slice_optimizer_state, slice_state
 from deepfluoro_tpu_torch.parallel.sharding import (
     agree_any,
     barrier,
@@ -289,14 +292,24 @@ def fit(
     A mesh with a 'spatial' axis of S processes too ({'data': P,
     'spatial': S}) and ``shard_spatial=True`` cuts every padded frame into
     S bands of rows (``parallel/mesh.py::row_layout``: whole blocks of
-    ``2**(depth - 1)`` rows, uneven bands allowed; a frame that cannot be
-    cut so raises ValueError), one per process of each data slice: each
+    ``2**(depth - 1)`` rows where the frame allows, uneven bands allowed,
+    at least one row per band), one per process of each data slice: each
     prepares its slice's whole frames (the same augmentation, one warp
-    launch per step), keeps its band, and runs the U-Net on it with halo
-    exchanges; BatchNorm spans data x spatial, the losses span the bands,
-    the gradients are summed over 'spatial' and averaged over 'data'.
+    launch per step), keeps its band, and runs the U-Net on it with row
+    exchanges (padded or valid convolutions, either upsampling);
+    BatchNorm spans data x spatial, the losses span the bands, the
+    gradients are summed over 'spatial' and averaged over 'data'.
     Validation runs on the same bands. Without ``shard_spatial`` the
     'spatial' processes train replicas of their data slice.
+
+    A mesh with a 'model' axis of T processes ({'data': P, 'model': T})
+    trains tensor-parallel: every process of a data slice holds its
+    output-channel shares of the state (``parallel/tensor.py``'s rule)
+    and draws the slice's augmentation; the gradient average spans
+    'data'. Checkpoints, best nets and loss files are one process's: the
+    state is gathered over 'model' and process 0 writes it; a resume cuts
+    it again. 'spatial' with ``shard_spatial`` and 'model' together raise
+    NotImplementedError, as in the JAX package.
 
     Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
     num_restarts, train_idx, valid_idx, train_losses, valid_losses,
@@ -316,9 +329,13 @@ def fit(
 
     dev = get_device(device)
     axis = Axis() if mesh is None else mesh.axis("data")
-    if mesh is not None and set(mesh.axis_names) - {"data", "spatial"}:
-        raise ValueError("fit shards over 'data' and 'spatial' axes only; got mesh axes {}".format(mesh.axes))
+    tp = Axis() if mesh is None else mesh.axis("model")
+    if mesh is not None and set(mesh.axis_names) - {"data", "spatial", "model"}:
+        raise ValueError("fit shards over 'data', 'spatial' and 'model' axes only; got mesh axes {}".format(mesh.axes))
     spatial = shard_spatial and mesh is not None and mesh.axis("spatial").size > 1
+    if spatial and tp.size > 1:
+        raise NotImplementedError("row sharding over 'spatial' does not compose with tensor parallelism over 'model' "
+                                  "(the JAX package refuses it too): drop one axis")
     # every process of the mesh agrees on resume, stopping and writing
     world = Axis() if mesh is None else mesh.joint(*mesh.axis_names)
     prev = None
@@ -401,9 +418,10 @@ def fit(
     if spatial:
         pad = cfg.proj_unet_dim
         rows = orig_h + 2 * calc_pad_amount(pad, orig_h) if pad > orig_h else orig_h
-        shard = row_shard(mesh, rows, 2 ** (cfg.depth - 1))
-        shard_rows(model, shard)
+        shard = shard_rows(model, mesh, rows)
         log("row-sharded frames: rows [{}, {}) of {} on this process".format(shard.start, shard.stop, rows))
+    dims = shard_channels(model, tp)
+    param_keys = [k for k, _ in model.named_parameters()]
     optimizer = make_optimizer(cfg, model.parameters())
     lr_sched = make_scheduler(cfg)
 
@@ -411,6 +429,11 @@ def fit(
     epoch = 0
     num_restarts = 0
     if prev is not None:
+        if tp.size > 1:
+            # a checkpoint is whole: each 'model' rank takes its shares
+            prev["model-state-dict"] = slice_state(prev["model-state-dict"], dims, tp)
+            if prev.get("optimizer-state-dict"):
+                prev["optimizer-state-dict"] = slice_optimizer_state(prev["optimizer-state-dict"], param_keys, dims, tp)
         best_valid_loss = restore_training_state(prev, model, optimizer, lr_sched, log)
         epoch = int(prev["epoch"])
         num_restarts = int(prev.get("lrs-num-restarts", 0))
@@ -450,10 +473,14 @@ def fit(
             checkpointer.copy(src, dst)
 
     def save_net(path, light=False):
+        state, opt_state = model.state_dict(), None if light else optimizer.state_dict()
+        # the file holds the whole state: every 'model' rank takes part in
+        # the gather, the writer writes
+        state, opt_state = gather_state(state, dims, tp, opt_state, param_keys)
         if checkpointer is None:
             return
         checkpointer.save(
-            path, cfg, model, None if light else optimizer,
+            path, cfg, state, opt_state,
             sched_state=None if light or lr_sched is None else lr_sched.state_dict(),
             epoch=epoch, best_valid_loss=best_valid_loss, last_loss=last_loss,
             num_restarts=num_restarts, train_idx=train_idx, valid_idx=valid_idx,

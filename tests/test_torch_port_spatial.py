@@ -52,7 +52,7 @@ from deepfluoro_tpu_torch.data.fixtures import write_synthetic_dataset, write_sy
 from deepfluoro_tpu_torch.infer.fullres import fullres_batches
 from deepfluoro_tpu_torch.models import UNet
 from deepfluoro_tpu_torch.parallel import make_mesh, multihost, run_ranks
-from deepfluoro_tpu_torch.parallel.mesh import Axis, RowShard, row_layout
+from deepfluoro_tpu_torch.parallel.mesh import Axis, Mesh, RowShard, row_layout
 from deepfluoro_tpu_torch.train import TrainConfig, fit
 from deepfluoro_tpu_torch.train.step import make_optimizer, update_step
 from deepfluoro_tpu_torch.utils.io import read_floats_from_txt
@@ -129,13 +129,19 @@ def test_no_deadline_still_stops_on_a_dead_rank():
 
 @pytest.mark.parametrize("rows,parts,multiple,want", [
     (1440, 2, 32, (736, 704)), (736, 2, 32, (384, 352)), (40, 2, 8, (24, 16)), (192, 2, 32, (96, 96)),
-    (1440, 4, 32, (384, 352, 352, 352)), (28, 2, 2, (14, 14)), (32, 4, 1, (8, 8, 8, 8))])
+    (1440, 4, 32, (384, 352, 352, 352)), (28, 2, 2, (14, 14)), (32, 4, 1, (8, 8, 8, 8)),
+    # the real 8x archive's 193 rows: whole blocks, the odd row on the last band
+    (193, 2, 32, (96, 97)),
+    # fewer whole blocks than bands: rows shared as evenly as they go
+    (64, 3, 32, (22, 21, 21))])
 def test_row_layout(rows, parts, multiple, want):
     assert row_layout(rows, parts, multiple) == want
-    assert sum(want) == rows and all(r % multiple == 0 for r in want)
+    assert sum(want) == rows
+    if rows // multiple >= parts:
+        assert all(r % multiple == 0 for r in want[:-1])
 
 
-@pytest.mark.parametrize("rows,parts,multiple,match", [(193, 2, 32, "multiple of 32"), (64, 3, 32, "too few")])
+@pytest.mark.parametrize("rows,parts,multiple,match", [(1, 2, 32, "too few"), (2, 3, 1, "too few")])
 def test_row_layout_refuses_what_cannot_be_cut(rows, parts, multiple, match):
     with pytest.raises(ValueError, match=match):
         row_layout(rows, parts, multiple)
@@ -327,15 +333,23 @@ def test_sharded_fullres_ensemble_batches_equal_one_process(four, fullres_case):
     np.testing.assert_allclose(got[0][2], want[0][2], atol=1e-5)
 
 
-def test_sharded_fullres_refusals():
-    with pytest.raises(NotImplementedError, match="--int8 under the spatial axis"):
-        from deepfluoro_tpu_torch.data.preprocess import make_quantized_fullres_infer
+def test_sharded_fullres_refusals(fullres_case):
+    """int8 on a mesh runs (on one process's mesh, as without one); a mesh
+    with another axis than 'data' and 'spatial' is refused, float or
+    int8."""
+    from deepfluoro_tpu_torch.data.preprocess import make_quantized_fullres_infer
 
-        make_quantized_fullres_infer(None, 2, 28, (148, 148), torch.ones(1, 148, 148), torch.zeros(1, dtype=bool),
-                                     mesh=make_mesh())
-    with pytest.raises(NotImplementedError, match="--int8 under the spatial axis"):
-        fullres_batches(None, 1, (148, 148), [UNet(**FULLRES_FLAGS)], 2, batch_size=1, pad_img_dim=28, quantized=True,
-                        mesh=make_mesh())
+    model = UNet(**FULLRES_FLAGS)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in fullres_case["sds"][0].items()})
+    projs, rots = torch.from_numpy(fullres_case["projs"]), torch.from_numpy(fullres_case["rots"])
+    plain = make_quantized_fullres_infer(model.eval(), 2, 28, (148, 148), projs, rots)(projs, rots)
+    meshed = make_quantized_fullres_infer(model, 2, 28, (148, 148), projs, rots, mesh=make_mesh())(projs, rots)
+    np.testing.assert_array_equal(meshed[0].numpy(), plain[0].numpy())
+    np.testing.assert_array_equal(meshed[1].numpy(), plain[1].numpy())
+    for quantized in (False, True):
+        with pytest.raises(ValueError, match="'data' and 'spatial' axes only"):
+            fullres_batches(None, 1, (148, 148), [UNet(**FULLRES_FLAGS)], 2, batch_size=1, pad_img_dim=28,
+                            quantized=quantized, mesh=make_mesh({"model": 1}))
 
 
 # ----- the two-rank spawn: a depth-6 step, uneven bands, fit --------------------
@@ -429,20 +443,28 @@ def test_fit_shard_spatial_resumed_from_jax_tracks_jax_fit_on_a_spatial_mesh(two
 
 
 def test_fit_refuses_what_the_bands_cannot_take(tmp_path):
+    """fit refuses an axis it does not shard over, and 'spatial' x 'model'
+    (as the JAX package does); a valid U-Net and an 'upsample' one are
+    planned on bands (they were refused before the row exchanges)."""
     from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.parallel.halo import Bands
 
     data = make_synthetic_data(num_specimens=1, num_projs=2, img_dim=32, seed=0)
-    with pytest.raises(ValueError, match="'data' and 'spatial' axes only"):
+    with pytest.raises(ValueError, match="'data', 'spatial' and 'model' axes only"):
         fit(data, [1], TrainConfig(**FIT_RECIPE), device="cpu", verbose=False, mesh=make_mesh({"ensemble": 1}),
             **_files(tmp_path, "e"))
-    model = UNet(**dict(UNEVEN_FLAGS, padding=False))
-    from deepfluoro_tpu_torch.parallel.sharding import shard_rows
-
-    shard = RowShard(Axis(2, 0, None, (0, 1)), Axis(2, 0, None, (0, 1)), 0, 16, 40, (16, 24))
-    with pytest.raises(ValueError, match="padded convolutions"):
-        shard_rows(model, shard)
-    with pytest.raises(ValueError, match="up_mode 'upconv'"):
-        shard_rows(UNet(**dict(UNEVEN_FLAGS, up_mode="upsample")), shard)
+    # rank 0's view of a {'spatial': 2, 'model': 2} mesh: fit refuses it
+    # before any collective
+    mesh = Mesh({"spatial": 2, "model": 2}, 0, {})
+    with pytest.raises(NotImplementedError, match="'spatial'"):
+        fit(data, [1], TrainConfig(**FIT_RECIPE), device="cpu", verbose=False, mesh=mesh, shard_spatial=True,
+            **_files(tmp_path, "sm"))
+    for flags in (dict(UNEVEN_FLAGS, depth=3, padding=False), dict(UNEVEN_FLAGS, up_mode="upsample")):
+        model = UNet(**flags)
+        with torch.no_grad():
+            rows = model.eval()(torch.zeros(1, 1, 64, 64))[0].shape[-2]
+        outs = [model.set_bands(Bands(Axis(2, k, None, (0, 1)), (0, 32, 64))) for k in range(2)]
+        assert outs[0][0] == 0 and outs[0][1] == outs[1][0] and outs[1][1:] == (rows, rows)
 
 
 # ----- the CLI ---------------------------------------------------------------------
@@ -463,8 +485,8 @@ def test_cli_spatial_devices_equal_one_process(tmp_path, archive):
     np.testing.assert_allclose(out["sp"], out["one"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("flags,match", [(["--tp-devices", "2"], "not ported"),
-                                         (["--tp-devices", "2", "--spatial-devices", "2"], "nor does it compose"),
+@pytest.mark.parametrize("flags,match", [(["--tp-devices", "0"], "at least 1"),
+                                         (["--tp-devices", "2", "--spatial-devices", "2"], "'spatial'"),
                                          (["--spatial-devices", "0"], "at least 1")])
 def test_cli_refusals(flags, match):
     with pytest.raises(SystemExit, match=match):

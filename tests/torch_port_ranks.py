@@ -204,7 +204,6 @@ def spatial_step(flags: dict, cfg_kw: dict, state_dict: dict, proj, seg, heats, 
     the global batch (proj (B, 1, P, P), seg (B, C, H, W), heats) over a
     mesh of ``axes``: this rank's data slice, row-sharded over 'spatial'.
     Returns the loss, the parameters and buffers after the step."""
-    from deepfluoro_tpu_torch.parallel.mesh import row_shard
     from deepfluoro_tpu_torch.parallel.sharding import shard_rows
     from deepfluoro_tpu_torch.train.step import make_optimizer, shard_prepared, update_step
 
@@ -214,8 +213,7 @@ def spatial_step(flags: dict, cfg_kw: dict, state_dict: dict, proj, seg, heats, 
     mesh = make_mesh(axes)
     data = mesh.axis("data")
     sync_batch_norm(model, data)
-    shard = row_shard(mesh, proj.shape[-2], 2 ** (flags["depth"] - 1))
-    shard_rows(model, shard)
+    shard = shard_rows(model, mesh, proj.shape[-2])
     rows = data.rows(proj.shape[0])
     prepared = {"proj": torch.from_numpy(proj[rows]), "seg": torch.from_numpy(seg[rows]),
                 "heats": None if heats is None else torch.from_numpy(heats[rows])}
@@ -299,3 +297,170 @@ def run_all(calls) -> list:
 
     here = sys.modules[__name__]
     return [getattr(here, name)(*args) for name, args in calls]
+
+
+def tp_step(flags: dict, cfg_kw: dict, state_dict: dict, proj, seg, heats, lr: float, axes: dict) -> dict:
+    """One ``update_step`` of a U-Net of ``flags`` from ``state_dict`` on
+    the global batch over a mesh of ``axes`` ('data' and 'model'): this
+    rank's data slice, the state cut over 'model' (``shard_channels``).
+    Returns the loss, the whole state and gradients after the step
+    (gathered over 'model') and which leaves this rank holds cut."""
+    from deepfluoro_tpu_torch.parallel.tensor import gather_state, is_cut, shard_channels
+    from deepfluoro_tpu_torch.train.step import make_optimizer, update_step
+
+    model = UNet(**flags)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    cfg = TrainConfig(**cfg_kw)
+    mesh = make_mesh(axes)
+    data, tp = mesh.axis("data"), mesh.axis("model")
+    sync_batch_norm(model, data)
+    dims = shard_channels(model, tp)
+    rows = data.rows(proj.shape[0])
+    prepared = {"proj": torch.from_numpy(proj[rows]), "seg": torch.from_numpy(seg[rows]),
+                "heats": None if heats is None else torch.from_numpy(heats[rows])}
+    opt = make_optimizer(cfg, model.parameters())
+    loss = update_step(model, opt, cfg, prepared, lr, data)
+    keys = [k for k, _ in model.named_parameters()]
+    state, opt_state = gather_state(model.state_dict(), dims, tp, opt.state_dict(), keys)
+    grads, _ = gather_state({k: p.grad for k, p in model.named_parameters() if p.grad is not None}, dims, tp)
+    return {"loss": float(loss), "state": {k: v.detach().numpy() for k, v in state.items()},
+            "grads": {k: v.numpy() for k, v in grads.items()},
+            "momentum": {keys[i]: e["momentum_buffer"].numpy() for i, e in opt_state["state"].items()},
+            "cut": sorted(k for k in dims if is_cut(dims[k], tp.size))}
+
+
+def tp_fits(runs) -> list:
+    """``fit`` on a mesh of each run's ``axes`` ('data' and 'model'), per
+    dict of ``runs``: source, pats, cfg_kw, files, axes. Each result holds
+    the whole state (gathered over 'model') and a checksum of every
+    prepared input this rank drew (the augmentation)."""
+    from deepfluoro_tpu_torch.parallel.tensor import gather_state
+    from deepfluoro_tpu_torch.train import step
+
+    prepare = step.prepare_batch
+    drawn = []
+
+    def recording(*args, **kwargs):
+        out = prepare(*args, **kwargs)
+        drawn.append(float(out["proj"].double().sum()))
+        return out
+
+    step.prepare_batch = recording
+    results = []
+    try:
+        for run in runs:
+            drawn.clear()
+            mesh = make_mesh(run["axes"])
+            out = fit(run["source"], run["pats"], TrainConfig(**run["cfg_kw"]), verbose=False, device="cpu",
+                      mesh=mesh, **run["files"])
+            model = out["model"]
+            state, _ = gather_state(model.state_dict(), model.channel_rule, mesh.axis("model"))
+            results.append({"train_losses": out["train_losses"], "valid_losses": out["valid_losses"],
+                            "epoch": out["epoch"], "drawn": list(drawn),
+                            "coords": mesh.coords(torch.distributed.get_rank()),
+                            "state": {k: v.numpy() for k, v in state.items()}})
+    finally:
+        step.prepare_batch = prepare
+    return results
+
+
+def sharded_checkpoints(flags: dict, cfg_kw: dict, state_dict: dict, proj, seg, heats, lr: float, axes: dict,
+                        save_path: str, load_paths) -> dict:
+    """On a mesh of ``axes`` ('model'): a model from ``state_dict`` cut
+    over 'model' takes one ``update_step`` and is saved with
+    ``save_sharded_checkpoint`` at ``save_path``, then reloaded at this
+    degree (this rank's shares, held against its own). Each of
+    ``load_paths`` (checkpoints saved at other degrees) is restored onto
+    this degree and takes one more step from the reloaded state. Returns
+    the step's loss, the whole state and momentum after it, whether the
+    reload equals this rank's own, and per load path the step's loss and
+    whole state."""
+    from deepfluoro_tpu_torch.parallel.tensor import gather_state, shard_channels
+    from deepfluoro_tpu_torch.train import load_sharded_checkpoint, save_sharded_checkpoint
+    from deepfluoro_tpu_torch.train.step import make_optimizer, update_step
+
+    cfg = TrainConfig(**cfg_kw)
+    mesh = make_mesh(axes)
+    tp = mesh.axis("model")
+    prepared = {"proj": torch.from_numpy(proj), "seg": torch.from_numpy(seg), "heats": torch.from_numpy(heats)}
+
+    def fresh():
+        model = UNet(**flags)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+        shard_channels(model, tp)
+        return model, make_optimizer(cfg, model.parameters())
+
+    def whole(model, opt):
+        keys = [k for k, _ in model.named_parameters()]
+        state, opt_state = gather_state(model.state_dict(), model.channel_rule, tp, opt.state_dict(), keys)
+        return ({k: v.detach().numpy() for k, v in state.items()},
+                {keys[i]: e["momentum_buffer"].numpy() for i, e in opt_state["state"].items()})
+
+    model, opt = fresh()
+    loss = update_step(model, opt, cfg, prepared, lr)
+    save_sharded_checkpoint(save_path, cfg.to_checkpoint_meta(), model, opt, epoch=7, last_loss=float(loss))
+    back = load_sharded_checkpoint(save_path, tp)
+    own = model.state_dict()
+    same = all(torch.equal(back["model-state-dict"][k], v) for k, v in own.items()) and all(
+        torch.equal(back["optimizer-state-dict"]["state"][i]["momentum_buffer"], e["momentum_buffer"])
+        for i, e in opt.state_dict()["state"].items())
+    state, momentum = whole(model, opt)
+    out = {"loss": float(loss), "state": state, "momentum": momentum, "reload_equal": same, "loaded": {}}
+    for path in load_paths:
+        ck = load_sharded_checkpoint(path, tp)
+        model, opt = fresh()
+        model.load_state_dict(ck["model-state-dict"])
+        opt.load_state_dict(ck["optimizer-state-dict"])
+        loss = update_step(model, opt, cfg, prepared, lr)
+        out["loaded"][path] = {"loss": float(loss), "state": whole(model, opt)[0], "epoch": ck["epoch"]}
+    return out
+
+
+def spatial_grads(flags: dict, cfg_kw: dict, state_dict: dict, proj, seg, heats, axes: dict) -> dict:
+    """On a mesh of ``axes`` ('data' and 'spatial'): the train-mode loss of
+    a U-Net of ``flags`` from ``state_dict`` on this rank's data slice and
+    band, its gradients summed over the bands and averaged over 'data' (no
+    step), and the eval-mode forward's (before it) band of rows of the
+    output map with the band's (start, stop, total) there."""
+    from deepfluoro_tpu_torch.parallel.sharding import average_gradients, shard_rows
+    from deepfluoro_tpu_torch.train.step import per_sample_losses, shard_prepared
+
+    model = UNet(**flags)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    cfg = TrainConfig(**cfg_kw)
+    mesh = make_mesh(axes)
+    data = mesh.axis("data")
+    shard = shard_rows(model, mesh, proj.shape[-2])
+    rows = data.rows(proj.shape[0])
+    prepared = shard_prepared({"proj": torch.from_numpy(proj[rows]), "seg": torch.from_numpy(seg[rows]),
+                               "heats": torch.from_numpy(heats[rows])}, shard)
+    model.eval()
+    with torch.no_grad():
+        out = model(prepared["proj"])
+    model.train()
+    loss = per_sample_losses(cfg, model(prepared["proj"]), prepared["seg"], prepared["heats"], True, shard,
+                             prepared["target_rows"]).mean()
+    loss.backward()
+    loss = average_gradients(model.parameters(), loss.detach(), shard.joint)
+    return {"loss": float(loss), "grads": {k: p.grad.numpy() for k, p in model.named_parameters() if p.grad is not None},
+            "forward": [o.numpy() for o in out], "out": shard.out, "layout": (shard.start, shard.stop)}
+
+
+def quantized_fullres(flags: dict, state_dict: dict, projs, rots, ds_factor: int, pad: int, axes: dict,
+                      batch_size: int) -> dict:
+    """On a mesh of ``axes``: ``make_quantized_fullres_infer(mesh=...)``
+    of the net over the frames (calibrated on them), and ``fullres_batches
+    (mesh=..., quantized=True)`` over them (process 0's arrays)."""
+    from deepfluoro_tpu_torch.data.preprocess import make_quantized_fullres_infer
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+
+    model = UNet(**flags)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    model.eval()
+    mesh = make_mesh(axes)
+    p, r = torch.from_numpy(projs), torch.from_numpy(rots)
+    labels, heats = make_quantized_fullres_infer(model, ds_factor, pad, projs.shape[1:], p, r, mesh=mesh)(p, r)
+    batches = list(fullres_batches(lambda i0, i1: (projs[i0:i1], rots[i0:i1]), len(projs), projs.shape[1:], [model],
+                                   ds_factor, num_lands=flags["num_lands"], batch_size=batch_size, pad_img_dim=pad,
+                                   quantized=True, mesh=mesh))
+    return {"labels": labels.numpy(), "heats": heats.numpy(), "batches": batches}
