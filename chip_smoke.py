@@ -190,6 +190,27 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      BatchNorm is ill-conditioned one process's own float32 errors range
      from 1e-5 to 1e-1 of a tensor's largest, so either step can be the
      closer one on a given tensor by chance;
+ 14. host leftovers (run before 12): (a) g++ builds ``deepfluoro_tpu_torch/
+     csrc/chunkzip.cpp`` into ``build/deepfluoro_tpu_torch/``; phase 5's
+     K = 6 outputs of one batch of 64 frames (``nn-segs`` u1 (64, 180,
+     180) and ``nn-heats`` float32 as the writer lays them, one chunk per
+     frame and landmark) deflated at level 9 by the library and by serial
+     zlib (``compress_chunks_plain``); every stream inflates through both
+     to the original bytes; whether the streams are identical, and each
+     way's MB/s on the host's clock with the thread and CPU counts (host
+     numbers, not the card's); (b) the overlays' blends
+     (``normalized_proj_rgb``, ``blend_seg``, ``blend_heat`` of one
+     landmark per frame, then the uint8 quantization) on those 64 frames,
+     the card equal to the CPU bit for bit, frames/s on the card; where PIL
+     is installed, the PNGs of ``make_overlay_est_ann``, ``make_overlay_
+     est_heat`` and a tiled grid decoded equal to the CPU's overlays;
+     (c) ``entry()``: the flagship's bf16 forward on the card against the
+     CPU from the same weights, softmax within 2e-2 and heats within 2 %
+     of the largest, and its time; (d) ``dryrun_multichip(2)``: two gloo
+     ranks on ``cuda:0`` run its four parts (a step on {'data': 1,
+     'spatial': 2}, a step on {'model': 2}, the ensemble forward and a
+     fold step on {'ensemble': 2}), warp launches counted per part (0: no
+     augmentation on these paths, nor in (a)-(c));
  12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
@@ -198,14 +219,15 @@ Any failed check raises, and the script exits non-zero without the final
 line; a rank that fails makes its phase raise. On success a line ``int8
 summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
 line ``distributed summary: {...}`` phase 10's, a line ``spatial
-summary: {...}`` phase 11's and a line ``tp summary: {...}`` phase 13's;
+summary: {...}`` phase 11's, a line ``tp summary: {...}`` phase 13's and
+a line ``host leftovers summary: {...}`` phase 14's;
 the line before the last is a JSON object describing the kernel (with its
 times at every geometry and its launches on each path: training, resume
 and stream, folds, 2x and 1x ladder training, data-parallel training in
 float32 and in bf16 with remat, fold-sharded training, the augmented
-resume from the JAX checkpoint, row-sharded training at 8x and at 2x, and
-tensor-parallel training, the parallel ones counted by the ranks), and
-the last line is
+resume from the JAX checkpoint, row-sharded training at 8x and at 2x,
+tensor-parallel training, phase 14's host paths and ``dryrun_multichip``'s
+four parts, the parallel ones counted by the ranks), and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -844,7 +866,12 @@ def phase_inference(seed, workdir, trained_ck, card):
     bulk = make_synthetic_data(num_specimens=1, num_projs=THROUGHPUT_FRAMES, img_dim=INFER_FRAME, seed=seed + 4)
     for k in (len(models), 1):
         times = []
-        _, _, wall_fps = _consume(ensemble_batches(bulk, models[:k], cfg.num_lands, times, THROUGHPUT_BATCH, cfg.proj_unet_dim))
+        bulk_labels, bulk_heats, wall_fps = _consume(ensemble_batches(bulk, models[:k], cfg.num_lands, times,
+                                                                      THROUGHPUT_BATCH, cfg.proj_unet_dim))
+        if k == len(models):  # phase 14's codec and overlays take one batch of the K = 6 outputs
+            outputs = {"projs": bulk.projs[:THROUGHPUT_BATCH].copy(), "labels": bulk_labels[:THROUGHPUT_BATCH].copy(),
+                       "heats": bulk_heats[:THROUGHPUT_BATCH].copy()}
+        del bulk_labels, bulk_heats
         fps = len(times) / sum(times)
         print("  [{}] ensemble frames/s at batch {}, K = {}, {}^2 -> {}^2, float32: {:.1f} by the --times contract "
               "(pad, z-norm, forwards, mean, argmax; {} frames), {:.1f} with the readback of labels and heats; "
@@ -866,7 +893,7 @@ def phase_inference(seed, workdir, trained_ck, card):
     print("  warp kernel launches during the timed inference runs: {} (no kernel on this path)".format(launches))
     if launches != 0:
         raise AssertionError("inference launched the warp kernel")
-    return [trained_ck] + [os.path.join(workdir, "member_{}.pt".format(i)) for i in range(1, ENSEMBLE_K)]
+    return [trained_ck] + [os.path.join(workdir, "member_{}.pt".format(i)) for i in range(1, ENSEMBLE_K)], outputs
 
 
 def _card(card):
@@ -2719,6 +2746,164 @@ def phase_tp(seed, workdir, member_path, refs, spread, card):
     return summary, {"tp_training": sum(r["a"]["launches"] for r in got)}
 
 
+OVERLAY_TIMED_BATCHES = 20  # 14(b): batches of phase 5's 64 frames timed through the blends
+ENTRY_TIMED_FORWARDS = 10  # 14(c): the flagship bf16 forward, timed after a warm-up
+
+
+def _codec_check(name, arr, card):
+    """14(a) for one dataset's chunks ``arr`` (n_chunks, R, C): level-9
+    deflate by the library and by serial zlib, every stream inflated by
+    both back to the original bytes; rates on the host's clock."""
+    from deepfluoro_tpu_torch.native import chunkzip
+
+    chunk_bytes, mb = arr[0].nbytes, arr.nbytes / 1e6
+    t0 = time.perf_counter()
+    native = chunkzip.compress_chunks(arr, level=9)
+    t1 = time.perf_counter()
+    plain = chunkzip.compress_chunks_plain(arr, level=9)
+    t2 = time.perf_counter()
+    flat = chunkzip.decompress_chunks(native, chunk_bytes)
+    t3 = time.perf_counter()
+    flat_plain = chunkzip.decompress_chunks_plain(native, chunk_bytes)
+    t4 = time.perf_counter()
+    raw = arr.reshape(len(arr), -1).view(np.uint8)
+    round_trips = [np.array_equal(f, raw) for f in (flat, flat_plain, chunkzip.decompress_chunks(plain, chunk_bytes),
+                                                   chunkzip.decompress_chunks_plain(plain, chunk_bytes))]
+    identical = native == plain
+    ratio = mb / (sum(map(len, native)) / 1e6)
+    print("  (a) [host of the {}] {} {} chunks of {} bytes ({:.1f} MB, {} compression {:.2f}x): deflate level 9 "
+          "native {:.1f} MB/s on {} threads, serial zlib {:.1f} MB/s ({:.2f}x); inflate native {:.1f} MB/s, serial "
+          "{:.1f} MB/s; streams byte-identical: {}; every chunk inflates to the original bytes through both "
+          "(native and serial streams, native and serial inflate): {}".format(
+              card, name, len(arr), chunk_bytes, mb, arr.dtype, ratio, mb / (t1 - t0),
+              chunkzip.default_threads(len(arr)), mb / (t2 - t1), (t2 - t1) / (t1 - t0), mb / (t3 - t2),
+              mb / (t4 - t3), identical, all(round_trips)))
+    if not all(round_trips):
+        raise AssertionError("phase 14(a): a {} chunk did not inflate to its bytes".format(name))
+    return {"chunks": len(arr), "chunk_bytes": chunk_bytes, "mb": mb, "compression_ratio": ratio,
+            "deflate_native_mb_s": mb / (t1 - t0), "deflate_serial_mb_s": mb / (t2 - t1),
+            "inflate_native_mb_s": mb / (t3 - t2), "inflate_serial_mb_s": mb / (t4 - t3),
+            "threads": chunkzip.default_threads(len(arr)), "streams_identical": identical}
+
+
+def _overlay_batch(projs, labels, heats, channels):
+    """14(b)'s device work: both overlays of a batch of frames, quantized."""
+    from deepfluoro_tpu_torch.viz.overlays import blend_heat, blend_seg, normalized_proj_rgb, to_uint8
+
+    rgb = normalized_proj_rgb(projs)
+    heat = heats[torch.arange(len(heats), device=heats.device), channels]
+    return to_uint8(blend_seg(rgb, labels)), to_uint8(blend_heat(rgb, heat))
+
+
+def _overlay_pngs(workdir, seg_u8, heat_u8, frames):
+    """Where PIL is installed: one overlay PNG of each kind and the tiled
+    batch written by the port's functions, decoded, against ``frames``
+    (the CPU's quantized overlays). Returns what was checked."""
+    try:
+        from PIL import Image
+    except ImportError:
+        print("  (b) PIL is not installed on this host: no PNG is written here (the blends above are the overlay "
+              "CLIs' device half)")
+        return None
+    from deepfluoro_tpu_torch.viz.examples import tile_images
+    from deepfluoro_tpu_torch.viz.overlays import make_overlay_est_ann, make_overlay_est_heat, to_uint8
+
+    projs, labels, heat = frames
+    paths = [os.path.join(workdir, n) for n in ("ann.png", "heat.png", "grid.png")]
+    make_overlay_est_ann(projs[0], labels[0], None, None, paths[0])
+    make_overlay_est_heat(projs[0], heat[0], paths[1])
+    Image.fromarray(to_uint8(tile_images(seg_u8.cpu().float() / 255.0)).numpy(), "RGB").save(paths[2])
+    decoded = [np.asarray(Image.open(p)) for p in paths]
+    ok = np.array_equal(decoded[0], seg_u8[0].cpu().numpy()) and np.array_equal(decoded[1], heat_u8[0].cpu().numpy())
+    print("  (b) PNGs written by make_overlay_est_ann, make_overlay_est_heat and the tiled grid of {} frames ({}x{} "
+          "px): decoded equal to the CPU's overlays: {}".format(len(seg_u8), decoded[2].shape[1], decoded[2].shape[0],
+                                                                 ok))
+    if not ok:
+        raise AssertionError("phase 14(b): a PNG does not decode to the overlay")
+    return ok
+
+
+def phase_host_leftovers(seed, workdir, outputs, card):
+    """Phase 14 (see the module docstring). Returns (summary, launches per
+    path)."""
+    from deepfluoro_tpu_torch.entry import FLAGSHIP, dryrun_multichip, entry
+    from deepfluoro_tpu_torch.native import chunkzip
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.ops._build import build_logs, library_path
+
+    summary = {}
+    warp.warp_launches = 0
+    t0 = time.perf_counter()
+    chunkzip._lib()
+    print("  (a) {} built with g++ (or found built) in {:.2f} s{}".format(library_path("chunkzip"), time.perf_counter() - t0,
+                                                         ": " + build_logs["chunkzip"].strip()
+                                                         if build_logs.get("chunkzip", "").strip() else ""))
+    labels, heats = outputs["labels"], outputs["heats"]
+    n, num_lands, h, w = heats.shape
+    summary["a_codec"] = {"cpu_count": os.cpu_count(),
+                          "nn-segs": _codec_check("nn-segs", labels, card),
+                          "nn-heats": _codec_check("nn-heats", heats.reshape(n * num_lands, h, w), card)}
+
+    cpu = (torch.from_numpy(outputs["projs"]), torch.from_numpy(labels), torch.from_numpy(heats))
+    channels = torch.arange(n) % num_lands
+    dev = tuple(t.to(DEVICE) for t in cpu)
+    got = [t.cpu() for t in _overlay_batch(*dev, channels.to(DEVICE))]
+    want = _overlay_batch(*cpu, channels)
+    equal = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(OVERLAY_TIMED_BATCHES):
+        _overlay_batch(*dev, channels.to(DEVICE))
+    _sync()
+    fps = OVERLAY_TIMED_BATCHES * n / (time.perf_counter() - t0)
+    print("  (b) {} overlays of {} frames of {}^2 (phase 5's K = {} outputs): normalized_proj_rgb, blend_seg, "
+          "blend_heat (landmark i mod {} of frame i) and the uint8 quantization: card equal to the CPU bit for bit: "
+          "{}; {:.1f} frames/s on the card (both overlays of a frame, host clock, {} batches)".format(
+              _card(card), n, h, ENSEMBLE_K, num_lands, equal, fps, OVERLAY_TIMED_BATCHES))
+    if not equal:
+        raise AssertionError("phase 14(b): the card's overlays differ from the CPU's")
+    heat_cpu = cpu[2][torch.arange(n), channels]
+    pngs = _overlay_pngs(workdir, got[0], got[1], (cpu[0], cpu[1], heat_cpu))
+    summary["b_overlays"] = {"frames": n, "card_equals_cpu": equal, "frames_per_s": fps, "pngs_checked": pngs}
+
+    fn, (model, x) = entry(device=DEVICE)
+    seg_d, heats_d = fn(model, x)
+    cpu_model = copy.deepcopy(model).cpu()
+    seg_c, heats_c = fn(cpu_model, x.cpu())
+    seg_err = float((seg_d.cpu() - seg_c).abs().max())
+    heat_share = float((heats_d.cpu() - heats_c).abs().max() / heats_c.abs().max())
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_TIMED_FORWARDS):
+        fn(model, x)
+    _sync()
+    ms = 1e3 * (time.perf_counter() - t0) / ENTRY_TIMED_FORWARDS
+    print("  (c) {} entry(): the flagship (depth {}, wf {}, {}^2, {} classes, {} landmarks, bf16 autocast) forward "
+          "of one frame, card against the CPU from the same weights: softmax max |diff| {:.2e} (<= 2e-2), heats "
+          "{:.2e} of the largest (<= 2e-2); {:.3f} ms per forward (host clock, {} forwards)".format(
+              _card(card), FLAGSHIP["depth"], FLAGSHIP["init_feats_exp"], x.shape[-1],
+              seg_d.shape[1], heats_d.shape[1], seg_err, heat_share, ms, ENTRY_TIMED_FORWARDS))
+    if seg_err > 2e-2 or heat_share > 2e-2 or not (torch.isfinite(seg_d).all() and torch.isfinite(heats_d).all()):
+        raise AssertionError("phase 14(c): entry()'s forward on the card differs from the CPU's")
+    summary["c_entry"] = {"softmax_max_abs": seg_err, "heats_share_of_max": heat_share, "ms_per_forward": ms}
+    launches = {"host_leftovers": warp.warp_launches}
+    del model, cpu_model
+
+    t0 = time.perf_counter()
+    parts = dryrun_multichip(2, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    per_part = {p["part"]: [r["warp_launches"] for r in p["ranks"]] for p in parts}
+    print("  (d) dryrun_multichip(2): {} parts OK on {} ranks ({}), {:.1f} s; warp launches per part and rank {}".format(
+        len(parts), len(parts[0]["ranks"]), parts[0]["backend"], seconds, per_part))
+    if [p["part"] for p in parts] != ["data_spatial", "tp", "ensemble", "multifold"]:
+        raise AssertionError("phase 14(d): dryrun_multichip ran {}".format([p["part"] for p in parts]))
+    summary["d_dryrun"] = {"backend": parts[0]["backend"], "seconds": seconds, "warp_launches": per_part,
+                           "losses": {p["part"]: p["ranks"][0].get("loss", p["ranks"][0].get("losses"))
+                                      for p in parts if p["part"] != "ensemble"}}
+    launches.update({"dryrun_" + k: sum(v) for k, v in per_part.items()})
+    return summary, launches
+
+
 def _bands(rows):
     from deepfluoro_tpu_torch.parallel.mesh import row_layout
 
@@ -2744,9 +2929,9 @@ def main(argv=None) -> int:
             ("5 inference", lambda: phase_inference(args.seed, workdir, results["4 training"][1], results["1 environment"])),
             ("6 resume and stream", lambda: phase_resume_and_stream(args.seed, workdir, results["1 environment"])),
             ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
-            ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"], results["1 environment"])),
-            ("9 int8", lambda: phase_int8(args.seed, results["5 inference"], results["1 environment"])),
-            ("10 distributed", lambda: phase_distributed(args.seed, workdir, results["5 inference"])),
+            ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"][0], results["1 environment"])),
+            ("9 int8", lambda: phase_int8(args.seed, results["5 inference"][0], results["1 environment"])),
+            ("10 distributed", lambda: phase_distributed(args.seed, workdir, results["5 inference"][0])),
             ("11 JAX checkpoints and spatial", lambda: phase_spatial(
                 args.seed, workdir, os.path.join(workdir, "fullres_1x.pt"), results["10 distributed"][2],
                 results["1 environment"])),
@@ -2754,6 +2939,8 @@ def main(argv=None) -> int:
                 args.seed, workdir, os.path.join(workdir, "fullres_1x.pt"), results["10 distributed"][2],
                 results["11 JAX checkpoints and spatial"][0]["b_spatial_8x"]["benchmark_spread_first_epoch"],
                 results["1 environment"])),
+            ("14 host leftovers", lambda: phase_host_leftovers(args.seed, workdir, results["5 inference"][1],
+                                                                results["1 environment"])),
             ("12 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
@@ -2776,6 +2963,7 @@ def main(argv=None) -> int:
         **results["10 distributed"][1],
         **results["11 JAX checkpoints and spatial"][1],
         **results["13 tensor parallel, sharded checkpoints, int8 bands"][1],
+        **results["14 host leftovers"][1],
     }
     kernel["launches"] = sum(kernel["launches_per_path"].values())
     int8 = results["9 int8"]
@@ -2784,6 +2972,7 @@ def main(argv=None) -> int:
     print("distributed summary: " + json.dumps(results["10 distributed"][0]))
     print("spatial summary: " + json.dumps(results["11 JAX checkpoints and spatial"][0]))
     print("tp summary: " + json.dumps(results["13 tensor parallel, sharded checkpoints, int8 bands"][0]))
+    print("host leftovers summary: " + json.dumps(results["14 host leftovers"][0]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

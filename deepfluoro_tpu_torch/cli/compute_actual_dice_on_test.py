@@ -15,6 +15,7 @@ import argparse
 import torch
 
 from deepfluoro_tpu_torch.eval.dice import hard_dice, write_dice_csv
+from deepfluoro_tpu_torch.native.chunkzip import read_dataset_direct
 from deepfluoro_tpu_torch.utils.platform import get_device
 
 
@@ -43,7 +44,9 @@ def main(argv=None):
     with h5py.File(args.ds_path, "r") as f:
         gt_segs = torch.from_numpy(f["{:02d}/segs".format(args.pat_ind)][:]).to(dev)
     with h5py.File(args.seg_file, "r") as f:
-        est_segs = torch.from_numpy(f[args.seg_group][:]).to(dev)
+        # nn-segs follow the per-image-chunk gzip contract: direct chunk
+        # reads and the native codec's parallel inflate
+        est_segs = torch.from_numpy(read_dataset_direct(f[args.seg_group])).to(dev)
     if gt_segs.shape[0] != est_segs.shape[0]:
         raise ValueError("{} ground-truth label maps, {} estimated".format(gt_segs.shape[0], est_segs.shape[0]))
 

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator
+from deepfluoro_tpu_torch.native.chunkzip import write_dataset_direct
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
 from deepfluoro_tpu_torch.parallel.multihost import is_writer, process_count
@@ -287,7 +288,10 @@ def write_ensemble_outputs(h5_f, batches, n: int, orig_hw, num_lands: int) -> No
     """Write ``ensemble_batches``' output into an open h5py file:
     ``nn-segs`` (n, H, W) u1 with chunks (1, H, W) and, with landmarks,
     ``nn-heats`` (n, L, H, W) with chunks (1, 1, H, W), both gzip 9
-    (reference util.py:293-377)."""
+    (reference util.py:293-377). Each batch is deflated by the native
+    codec's threads and written by direct chunk writes
+    (``native/chunkzip.py``, as the JAX package writes), not by h5py's
+    serial filter; plain h5py reads the file."""
     segs_ds = h5_f.create_dataset(
         "nn-segs", (n, *orig_hw), dtype="u1", chunks=(1, *orig_hw), compression="gzip", compression_opts=9
     )
@@ -298,9 +302,9 @@ def write_ensemble_outputs(h5_f, batches, n: int, orig_hw, num_lands: int) -> No
         )
     written = 0
     for start, labels, heats in batches:
-        segs_ds[start : start + labels.shape[0]] = labels
+        write_dataset_direct(segs_ds, start, labels)
         if heats_ds is not None:
-            heats_ds[start : start + heats.shape[0]] = heats
+            write_dataset_direct(heats_ds, start, heats)
         written = start + labels.shape[0]
     if written != n:
         raise RuntimeError("wrote {} of {} images".format(written, n))

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: the package and chip_smoke.py run on
-a machine that has torch but no JAX, flax, optax, h5py or PIL, so none of
-the JAX stack may be imported, nor anything of the JAX package, and h5py
-and PIL only inside the functions that need them."""
+a machine that has torch but no JAX, flax, optax, h5py or vtk, so none of
+the JAX stack may be imported, nor anything of the JAX package, and h5py,
+PIL and vtk only inside the functions that need them."""
 
 import ast
 import pathlib
@@ -11,7 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "deepfluoro_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepfluoro_tpu")
-LAZY_ONLY = ("h5py", "PIL")
+LAZY_ONLY = ("h5py", "PIL", "vtk")
 
 
 def _imports(node, at_import_time=False):
@@ -37,7 +37,7 @@ def _violations(source):
 
 def test_checker_catches_violations():
     assert _violations("import jax.numpy as jnp") and _violations("from deepfluoro_tpu.ops import image")
-    assert _violations("import h5py") and _violations("class A:\n    import h5py")
+    assert _violations("import h5py") and _violations("class A:\n    import h5py") and _violations("import vtk")
     assert not _violations("def f():\n    import h5py\n") and not _violations("import deepfluoro_tpu_torch.ops")
 
 
@@ -143,9 +143,36 @@ def test_training_modules_import_no_jax_stack_or_h5py():
         assert not set(loaded) & set(FORBIDDEN + LAZY_ONLY), (mod, loaded)
 
 
+HOST_LEFTOVER_MODULES = [
+    "deepfluoro_tpu_torch.native",
+    "deepfluoro_tpu_torch.native.chunkzip",
+    "deepfluoro_tpu_torch.viz",
+    "deepfluoro_tpu_torch.viz.overlays",
+    "deepfluoro_tpu_torch.viz.examples",
+    "deepfluoro_tpu_torch.viz.projective",
+    "deepfluoro_tpu_torch.entry",
+    "deepfluoro_tpu_torch.cli.overlay_est_ann",
+    "deepfluoro_tpu_torch.cli.overlay_est_heat",
+    "deepfluoro_tpu_torch.cli.make_preproc_overlays",
+    "deepfluoro_tpu_torch.cli.make_full_res_overlays",
+    "deepfluoro_tpu_torch.cli.full_res_3d_viz",
+]
+
+
+def test_host_leftover_modules_import_no_jax_stack_h5py_pil_or_vtk():
+    """The codec, the overlays and geometry, their CLIs and the entry
+    points load nothing of the JAX stack or package, and no h5py, PIL or
+    vtk, when imported (the card's machine has no h5py and no vtk)."""
+    added = _modules_added_by_each_import(HOST_LEFTOVER_MODULES)
+    assert "torch" in added["deepfluoro_tpu_torch.viz"] and "numpy" in added[HOST_LEFTOVER_MODULES[0]]
+    for mod, loaded in added.items():
+        assert not set(loaded) & set(FORBIDDEN + LAZY_ONLY), (mod, loaded)
+
+
 def test_wheel_ships_the_kernel_sources():
-    """An installed package builds its kernels from csrc/*.cu, so the
-    package data must name them, and the glob must match every source."""
+    """An installed package builds its kernels from csrc/*.cu and its host
+    codec from csrc/*.cpp, so the package data must name them, and the
+    globs must match every source."""
     import fnmatch
     import tomllib
 
