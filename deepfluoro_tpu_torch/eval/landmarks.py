@@ -28,6 +28,7 @@ import torch
 
 from deepfluoro_tpu_torch.ops.heatmap import gaussian_heatmap
 from deepfluoro_tpu_torch.ops.losses import ncc_2d
+from deepfluoro_tpu_torch.utils.profiling import count, span
 
 # landmark name -> estimated-seg label gating its detection
 # (est_lands_csv.py:56-73; labels per README.md:33-41)
@@ -69,36 +70,38 @@ def detect_landmarks(heats: torch.Tensor, land_names, segs: torch.Tensor | None 
     optional (N, H, W) estimated label maps (``nn-segs``).
     Returns (rows, cols): two (N, L) int32 numpy arrays, -1 where not found.
     """
-    n, l, h, w = heats.shape
-    if len(land_names) != l:
-        raise ValueError("{} landmark names for {} heatmaps".format(len(land_names), l))
-    if min(h, w) <= _PAD:
-        raise ValueError("frames of {}x{} are too small for the {}-px reflect pad".format(h, w, _PAD))
-    dev = heats.device
-    heats = heats.float()
-    masked = heats
-    if segs is not None:
-        gate = torch.tensor(_gate_labels(land_names), device=dev)[None, :, None, None]
-        allowed = (segs.to(dev).long()[:, None] == gate) | (gate < 0)
-        masked = torch.where(allowed, heats, torch.full_like(heats, -torch.inf))
-    flat = masked.reshape(n, l, h * w)
-    # torch.argmax takes the first index of ties, as jnp.argmax
-    idx = flat.argmax(dim=2)
-    found = torch.isfinite(flat.gather(2, idx[..., None])[..., 0])
-    r, c = idx // w, idx % w
+    with span("landmarks.detect"):
+        n, l, h, w = heats.shape
+        if len(land_names) != l:
+            raise ValueError("{} landmark names for {} heatmaps".format(len(land_names), l))
+        if min(h, w) <= _PAD:
+            raise ValueError("frames of {}x{} are too small for the {}-px reflect pad".format(h, w, _PAD))
+        dev = heats.device
+        heats = heats.float()
+        masked = heats
+        if segs is not None:
+            gate = torch.tensor(_gate_labels(land_names), device=dev)[None, :, None, None]
+            allowed = (segs.to(dev).long()[:, None] == gate) | (gate < 0)
+            masked = torch.where(allowed, heats, torch.full_like(heats, -torch.inf))
+        flat = masked.reshape(n, l, h * w)
+        # torch.argmax takes the first index of ties, as jnp.argmax
+        idx = flat.argmax(dim=2)
+        found = torch.isfinite(flat.gather(2, idx[..., None])[..., 0])
+        r, c = idx // w, idx % w
 
-    off = torch.arange(-_PAD, _PAD + 1, device=dev)
-    rr = _reflect(r[..., None] + off, h)[..., :, None]  # (N, L, 25, 1)
-    cc = _reflect(c[..., None] + off, w)[..., None, :]  # (N, L, 1, 25)
-    ni = torch.arange(n, device=dev)[:, None, None, None]
-    li = torch.arange(l, device=dev)[None, :, None, None]
-    roi = heats[ni, li, rr, cc]  # (N, L, 25, 25)
-    template = gaussian_heatmap(_ROI, _ROI, 2.5, device=dev)
-    found &= ncc_2d(template, roi) >= _NCC_THRESH
+        off = torch.arange(-_PAD, _PAD + 1, device=dev)
+        rr = _reflect(r[..., None] + off, h)[..., :, None]  # (N, L, 25, 1)
+        cc = _reflect(c[..., None] + off, w)[..., None, :]  # (N, L, 1, 25)
+        ni = torch.arange(n, device=dev)[:, None, None, None]
+        li = torch.arange(l, device=dev)[None, :, None, None]
+        roi = heats[ni, li, rr, cc]  # (N, L, 25, 25)
+        template = gaussian_heatmap(_ROI, _ROI, 2.5, device=dev)
+        found &= ncc_2d(template, roi) >= _NCC_THRESH
 
-    rows = torch.where(found, r, torch.full_like(r, -1)).to(torch.int32)
-    cols = torch.where(found, c, torch.full_like(c, -1)).to(torch.int32)
-    return rows.cpu().numpy(), cols.cpu().numpy()
+        rows = torch.where(found, r, torch.full_like(r, -1)).to(torch.int32)
+        cols = torch.where(found, c, torch.full_like(c, -1)).to(torch.int32)
+        count("host_syncs", 2)
+        return rows.cpu().numpy(), cols.cpu().numpy()
 
 
 def detect_landmarks_timed(heats: torch.Tensor, land_names, segs: torch.Tensor | None = None):

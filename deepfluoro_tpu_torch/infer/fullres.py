@@ -36,6 +36,7 @@ from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, fullres_shar
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
 from deepfluoro_tpu_torch.parallel.sharding import gather_bands
+from deepfluoro_tpu_torch.utils.profiling import count, span
 
 
 def list_fullres_frames(src, specimens=None):
@@ -198,30 +199,44 @@ def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
     generator ``fullres_batches`` returns)."""
 
     def sync():
+        count("host_syncs")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def readback(x):
+        count("host_syncs")
+        return x.cpu().numpy()
 
     run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
     sync()
 
     for i0 in range(0, n, batch_size):
-        i1 = min(i0 + batch_size, n)
-        real_b = i1 - i0
-        projs, rots = read_batch(i0, i1)
-        if real_b < batch_size:
-            pad = batch_size - real_b
-            projs = np.concatenate([projs, np.repeat(projs[-1:], pad, axis=0)])
-            rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
-        t0 = time.perf_counter()
-        labels, heats = run(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))
-        sync()
-        elapsed = time.perf_counter() - t0
-        if times is not None:
-            times.extend([elapsed / real_b] * real_b)
-        if not writer:
-            yield i0, None, None
-            continue
-        yield i0, labels[:real_b].cpu().numpy(), None if heats is None else heats[:real_b].cpu().numpy()
+        # no span stays open across the yield, where the consumer runs
+        with span("fullres.batch", i0):
+            i1 = min(i0 + batch_size, n)
+            real_b = i1 - i0
+            projs, rots = read_batch(i0, i1)
+            if real_b < batch_size:
+                pad = batch_size - real_b
+                projs = np.concatenate([projs, np.repeat(projs[-1:], pad, axis=0)])
+                rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
+            t0 = time.perf_counter()
+            with span("fullres.copy_up", i0):
+                projs, rots = torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev)
+            with span("fullres.forward", i0):
+                labels, heats = run(projs, rots)
+            with span("fullres.sync", i0):
+                sync()
+            elapsed = time.perf_counter() - t0
+            if times is not None:
+                times.extend([elapsed / real_b] * real_b)
+            if writer:
+                with span("fullres.readback", i0):
+                    labels = readback(labels[:real_b])
+                    heats = None if heats is None else readback(heats[:real_b])
+            else:
+                labels = heats = None
+        yield i0, labels, heats
 
 
 def seg_fullres_dataset(

@@ -72,6 +72,7 @@ from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartL
 from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, set_lr, train_step
 from deepfluoro_tpu_torch.utils.io import RunningFloatWriter
 from deepfluoro_tpu_torch.utils.platform import get_device
+from deepfluoro_tpu_torch.utils.profiling import count, span
 
 
 def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator, data: Axis = Axis(), shard=None):
@@ -98,6 +99,7 @@ def evaluate(model, cfg: TrainConfig, aug_cfg: AugmentConfig, iterator, data: Ax
 
         local = eval_losses(model, cfg, aug_cfg, tuple(part(a) for a in batch), shard)
         losses.append(gather_rows(local, data)[:n])
+    count("host_syncs")
     losses = torch.cat(losses).cpu().numpy()
     std = float(losses.std(ddof=1)) if losses.size > 1 else 0.0
     return float(losses.mean()), std
@@ -470,21 +472,23 @@ def fit(
 
     def copy_net(src, dst):
         if checkpointer is not None:
-            checkpointer.copy(src, dst)
+            with span("fit.checkpoint", epoch):
+                checkpointer.copy(src, dst)
 
     def save_net(path, light=False):
-        state, opt_state = model.state_dict(), None if light else optimizer.state_dict()
-        # the file holds the whole state: every 'model' rank takes part in
-        # the gather, the writer writes
-        state, opt_state = gather_state(state, dims, tp, opt_state, param_keys)
-        if checkpointer is None:
-            return
-        checkpointer.save(
-            path, cfg, state, opt_state,
-            sched_state=None if light or lr_sched is None else lr_sched.state_dict(),
-            epoch=epoch, best_valid_loss=best_valid_loss, last_loss=last_loss,
-            num_restarts=num_restarts, train_idx=train_idx, valid_idx=valid_idx,
-        )
+        with span("fit.checkpoint", epoch):
+            state, opt_state = model.state_dict(), None if light else optimizer.state_dict()
+            # the file holds the whole state: every 'model' rank takes part
+            # in the gather, the writer writes
+            state, opt_state = gather_state(state, dims, tp, opt_state, param_keys)
+            if checkpointer is None:
+                return
+            checkpointer.save(
+                path, cfg, state, opt_state,
+                sched_state=None if light or lr_sched is None else lr_sched.state_dict(),
+                epoch=epoch, best_valid_loss=best_valid_loss, last_loss=last_loss,
+                num_restarts=num_restarts, train_idx=train_idx, valid_idx=valid_idx,
+            )
 
     sigterm = SigtermFlag()
     train_loss_out = RunningFloatWriter(train_loss_txt, new_file=not resume) if writer else None
@@ -495,125 +499,133 @@ def fit(
     try:
         keep_training = True
         while keep_training:
-            epoch_start = time.time()
-            log("Epoch: {:03d}".format(epoch))
-            running_loss_num_iters = max(1, int(0.05 * train_ds_len))
-            running_loss, running_loss_iter = 0.0, 0
-            epoch_loss, num_batches, num_examples_run = 0.0, 0, 0
+            with span("fit.epoch", epoch):
+                epoch_start = time.time()
+                log("Epoch: {:03d}".format(epoch))
+                running_loss_num_iters = max(1, int(0.05 * train_ds_len))
+                running_loss, running_loss_iter = 0.0, 0
+                epoch_loss, num_batches, num_examples_run = 0.0, 0, 0
 
-            t_mark = time.perf_counter()
-            batches = train_iter.epoch()
-            for batch in batches:
-                lr = lr_sched.get_lr() if lr_sched is not None else cfg.init_lr
-                loss = float(train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis, shard))
-                last_loss = loss
-                train_losses.append(loss)
-                if train_loss_out is not None:
-                    train_loss_out.write(loss)
-                epoch_loss += loss
-                num_batches += 1
-                running_loss += loss
-                running_loss_iter += 1
-                if running_loss_iter == running_loss_num_iters:
-                    log("    Running Avg. Loss: {:.6f}".format(running_loss / running_loss_num_iters))
-                    running_loss, running_loss_iter = 0.0, 0
-                num_examples_run += int(batch[0].shape[0]) * axis.size
-                if lrs_is_cos and lr_sched is not None:
-                    lr_sched.intra_epoch_step(num_examples_run / train_ds_len)
-                now = time.perf_counter()
-                step_seconds.append(now - t_mark)
-                t_mark = now
+                t_mark = time.perf_counter()
+                batches = train_iter.epoch()
+                for batch in batches:
+                    lr = lr_sched.get_lr() if lr_sched is not None else cfg.init_lr
+                    step = len(train_losses)
+                    with span("fit.step", step):
+                        loss = train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis, shard)
+                    with span("fit.loss_readback", step):
+                        count("host_syncs")
+                        loss = float(loss)
+                    last_loss = loss
+                    train_losses.append(loss)
+                    if train_loss_out is not None:
+                        train_loss_out.write(loss)
+                    epoch_loss += loss
+                    num_batches += 1
+                    running_loss += loss
+                    running_loss_iter += 1
+                    if running_loss_iter == running_loss_num_iters:
+                        log("    Running Avg. Loss: {:.6f}".format(running_loss / running_loss_num_iters))
+                        running_loss, running_loss_iter = 0.0, 0
+                    num_examples_run += int(batch[0].shape[0]) * axis.size
+                    if lrs_is_cos and lr_sched is not None:
+                        lr_sched.intra_epoch_step(num_examples_run / train_ds_len)
+                    now = time.perf_counter()
+                    step_seconds.append(now - t_mark)
+                    t_mark = now
 
-            log("  Running validation")
-            avg_valid_loss, std_valid_loss = evaluate(model, cfg, aug_eval, valid_iter, axis, shard)
-            valid_losses.append(avg_valid_loss)
-            if valid_loss_out is not None:
-                valid_loss_out.write(avg_valid_loss)
-            log("  Avg. Training Loss: {:.6f}".format(epoch_loss / num_batches))
-            log("  Validation Loss: {:.6f} +/- {:.6f}".format(avg_valid_loss, std_valid_loss))
+                log("  Running validation")
+                with span("fit.validation", epoch):
+                    avg_valid_loss, std_valid_loss = evaluate(model, cfg, aug_eval, valid_iter, axis, shard)
+                valid_losses.append(avg_valid_loss)
+                if valid_loss_out is not None:
+                    valid_loss_out.write(avg_valid_loss)
+                log("  Avg. Training Loss: {:.6f}".format(epoch_loss / num_batches))
+                log("  Validation Loss: {:.6f} +/- {:.6f}".format(avg_valid_loss, std_valid_loss))
 
-            if lr_sched is not None:
-                if lrs_plateau:
-                    lr_sched.step(avg_valid_loss)
-                else:
-                    lr_sched.step()
-                    if lr_sched.just_restarted:
-                        log("  Next epoch is warm restart...")
-                        num_restarts += 1
-                # the saved param groups carry the LR the next epoch runs
-                # at, as torch's schedulers leave them (readers of the file
-                # take the plateau LR from there)
-                set_lr(optimizer, lr_sched.get_lr())
-            epoch += 1
+                if lr_sched is not None:
+                    if lrs_plateau:
+                        lr_sched.step(avg_valid_loss)
+                    else:
+                        lr_sched.step()
+                        if lr_sched.just_restarted:
+                            log("  Next epoch is warm restart...")
+                            num_restarts += 1
+                    # the saved param groups carry the LR the next epoch runs
+                    # at, as torch's schedulers leave them (readers of the file
+                    # take the plateau LR from there)
+                    set_lr(optimizer, lr_sched.get_lr())
+                epoch += 1
 
-            new_best_valid = best_valid_loss is None or avg_valid_loss < best_valid_loss
-            if new_best_valid:
-                best_valid_loss = avg_valid_loss
+                new_best_valid = best_valid_loss is None or avg_valid_loss < best_valid_loss
+                if new_best_valid:
+                    best_valid_loss = avg_valid_loss
 
-            saved_path = None  # a full file written this epoch, a copy source
-            if epoch % cfg.checkpoint_freq == 0:
-                log("  Saving checkpoint")
-                save_net(checkpoint_filename)
-                saved_path = checkpoint_filename
-            if new_best_valid and cfg.save_best_valid:
-                log("  Saving best validation (loss: {:.6f})".format(best_valid_loss))
-                # a light best net is never a copy of a full file
-                if saved_path is not None and not cfg.light_best_nets:
-                    copy_net(saved_path, best_valid_filename)
-                else:
-                    save_net(best_valid_filename, light=cfg.light_best_nets)
-                    if not cfg.light_best_nets:
-                        saved_path = best_valid_filename
-            if (lrs_is_cos and lr_sched is not None and lr_sched.just_restarted and cfg.save_restart_net_prefix
-                    and num_restarts >= cfg.save_after_n_restarts):
-                restart_path = "{}_{:02d}.pt".format(cfg.save_restart_net_prefix, num_restarts - 1)
-                log("  Saving network before restart {} to {}".format(num_restarts, restart_path))
-                if saved_path is not None and not cfg.light_best_nets:
-                    copy_net(saved_path, restart_path)
-                else:
-                    save_net(restart_path, light=cfg.light_best_nets)
-                    if not cfg.light_best_nets:
-                        saved_path = restart_path
-
-            this_epoch_hours = (time.time() - epoch_start) / 3600.0
-            log("  This epoch took {:.4f} hours!".format(this_epoch_hours))
-            tot_time_hours += this_epoch_hours
-            epochs_this_session += 1
-            avg_epoch_time_hours = tot_time_hours / epochs_this_session
-            log("  Current average epoch runtime: {:.4f} hours".format(avg_epoch_time_hours))
-
-            if sigterm.requested:
-                keep_training = False
-                log("  Exiting - termination requested!")
-            if cfg.max_hours > 0 and tot_time_hours + avg_epoch_time_hours > cfg.max_hours:
-                keep_training = False
-                log("  Exiting - did not expect to be able to complete next epoch within time limit!")
-            if cfg.max_num_restarts > 0:
-                if num_restarts >= cfg.max_num_restarts:
-                    keep_training = False
-                    log("  Exiting - maximum number of restarts performed!")
-            elif epoch >= cfg.max_num_epochs:
-                keep_training = False
-                log("  Exiting - maximum number of epochs performed!")
-            # SIGTERM and the clock are per process: stop everywhere if any
-            # process stops, or its peers wait for it at the next collective
-            if world.size > 1 and agree_any(not keep_training, world.group) and keep_training:
-                keep_training = False
-                log("  Exiting - a peer process requested termination!")
-
-            if not keep_training:
-                log("    saving checkpoint before exit!")
-                if saved_path is None:
+                saved_path = None  # a full file written this epoch, a copy source
+                if epoch % cfg.checkpoint_freq == 0:
+                    log("  Saving checkpoint")
                     save_net(checkpoint_filename)
-                elif saved_path != checkpoint_filename:
-                    copy_net(saved_path, checkpoint_filename)
+                    saved_path = checkpoint_filename
+                if new_best_valid and cfg.save_best_valid:
+                    log("  Saving best validation (loss: {:.6f})".format(best_valid_loss))
+                    # a light best net is never a copy of a full file
+                    if saved_path is not None and not cfg.light_best_nets:
+                        copy_net(saved_path, best_valid_filename)
+                    else:
+                        save_net(best_valid_filename, light=cfg.light_best_nets)
+                        if not cfg.light_best_nets:
+                            saved_path = best_valid_filename
+                if (lrs_is_cos and lr_sched is not None and lr_sched.just_restarted and cfg.save_restart_net_prefix
+                        and num_restarts >= cfg.save_after_n_restarts):
+                    restart_path = "{}_{:02d}.pt".format(cfg.save_restart_net_prefix, num_restarts - 1)
+                    log("  Saving network before restart {} to {}".format(num_restarts, restart_path))
+                    if saved_path is not None and not cfg.light_best_nets:
+                        copy_net(saved_path, restart_path)
+                    else:
+                        save_net(restart_path, light=cfg.light_best_nets)
+                        if not cfg.light_best_nets:
+                            saved_path = restart_path
+
+                this_epoch_hours = (time.time() - epoch_start) / 3600.0
+                log("  This epoch took {:.4f} hours!".format(this_epoch_hours))
+                tot_time_hours += this_epoch_hours
+                epochs_this_session += 1
+                avg_epoch_time_hours = tot_time_hours / epochs_this_session
+                log("  Current average epoch runtime: {:.4f} hours".format(avg_epoch_time_hours))
+
+                if sigterm.requested:
+                    keep_training = False
+                    log("  Exiting - termination requested!")
+                if cfg.max_hours > 0 and tot_time_hours + avg_epoch_time_hours > cfg.max_hours:
+                    keep_training = False
+                    log("  Exiting - did not expect to be able to complete next epoch within time limit!")
+                if cfg.max_num_restarts > 0:
+                    if num_restarts >= cfg.max_num_restarts:
+                        keep_training = False
+                        log("  Exiting - maximum number of restarts performed!")
+                elif epoch >= cfg.max_num_epochs:
+                    keep_training = False
+                    log("  Exiting - maximum number of epochs performed!")
+                # SIGTERM and the clock are per process: stop everywhere if any
+                # process stops, or its peers wait for it at the next collective
+                if world.size > 1 and agree_any(not keep_training, world.group) and keep_training:
+                    keep_training = False
+                    log("  Exiting - a peer process requested termination!")
+
+                if not keep_training:
+                    log("    saving checkpoint before exit!")
+                    if saved_path is None:
+                        save_net(checkpoint_filename)
+                    elif saved_path != checkpoint_filename:
+                        copy_net(saved_path, checkpoint_filename)
         log("Training Hours: {:.4f}".format(tot_time_hours))
         completed = True
     finally:
         # on an exception, a checkpointer error must not hide it
         try:
             if checkpointer is not None:
-                checkpointer.wait()
+                with span("fit.checkpoint_wait"):
+                    checkpointer.wait()
         except Exception:
             if completed:
                 raise

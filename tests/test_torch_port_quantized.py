@@ -32,7 +32,6 @@ from deepfluoro_tpu.data.preprocess import make_quantized_fullres_infer as jax_q
 from deepfluoro_tpu.infer import quantized as jq
 from deepfluoro_tpu.models.unet import UNet as JaxUNet
 from deepfluoro_tpu.train.config import TrainConfig as JaxTrainConfig
-from deepfluoro_tpu.utils import profiling as jax_profiling
 from deepfluoro_tpu_torch.compat import state_dict_from_jax
 from deepfluoro_tpu_torch.data.fixtures import (
     make_synthetic_data,
@@ -617,16 +616,6 @@ def test_profile_trace_writes_a_trace_and_is_a_noop_without_a_dir(tmp_path):
         torch.ones(8).sum()
     with profiling.profile_trace(None):
         pass
-
-
-def test_step_timer_summary_has_the_jax_keys():
-    mine, theirs = profiling.StepTimer(), jax_profiling.StepTimer()
-    assert mine.summary() == theirs.summary() == {"count": 0}
-    for t in (mine, theirs):
-        for _ in range(3):
-            with t.measure():
-                pass
-    assert mine.summary().keys() == theirs.summary().keys() and mine.summary()["count"] == 3
 
 
 def test_train_cli_profile_dir_and_debug_nans(tmp_path, monkeypatch):
