@@ -21,10 +21,16 @@ of the same factor. ``quantized`` runs the members' int8 forwards
 through the same prep. A mesh of 'data' and 'spatial' processes
 (``fullres_batches(mesh=...)``, float or int8) splits each batch's frames
 over 'data' and their rows over 'spatial'.
+
+Every forward of ``fullres_batches`` (its warm-up, each batch, the int8
+calibration) runs inside ``measured_algorithms``: cuDNN times the
+candidate algorithms of each convolution shape once and keeps the
+fastest, in plan-cache entries of the full-res path's own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -37,6 +43,37 @@ from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
 from deepfluoro_tpu_torch.parallel.sharding import gather_bands
 from deepfluoro_tpu_torch.utils.profiling import count, span
+
+# candidates cuDNN times per convolution shape under measured_algorithms (in
+# the order of its heuristics; torch's default is 10): at the 2x rung on an
+# H100 the first forward then takes 2.8 s instead of 5.0-5.4 s, and the
+# forward 49.5 ms instead of 49.1-49.4 ms
+MEASURED_CANDIDATES = 5
+
+
+@contextlib.contextmanager
+def measured_algorithms():
+    """A scope in which cuDNN picks each convolution's algorithm by timing
+    its candidates (``torch.backends.cudnn.benchmark``), once per shape,
+    at most ``MEASURED_CANDIDATES`` of them; the caller's ``benchmark``,
+    ``deterministic`` and ``benchmark_limit`` come back on exit, also on
+    an exception. TF32 and ``enabled`` stay as the caller set them."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit
+    # deterministic is set for the plan cache's key, not for
+    # reproducibility: torch keys its cached cuDNN plans by shape, strides,
+    # dtype, layout, deterministic and TF32, not by benchmark, so without it
+    # a plan the heuristic chose for an earlier forward at the same shape
+    # (a BatchNorm calibration, say) would be reused here. It costs the
+    # transposed convolutions their fastest, non-deterministic algorithms:
+    # 6.7 against 2.9 ms of a 49-50 ms forward at the 2x rung on an H100.
+    # Measurement may pick other algorithms in another process.
+    cudnn.benchmark = cudnn.deterministic = True
+    cudnn.benchmark_limit = MEASURED_CANDIDATES
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit = saved
 
 
 def list_fullres_frames(src, specimens=None):
@@ -93,7 +130,9 @@ def fullres_batches(
     batch's wall-clock over the real frames: the copy to the device, prep,
     K forwards, mean and argmax, up to a synchronise; the readback falls
     outside. Raises ValueError at once when the nets' ``pad_img_dim`` is
-    below the frame size at ``ds_factor`` (nets of another rung).
+    below the frame size at ``ds_factor`` (nets of another rung). Every
+    forward runs inside ``measured_algorithms``, and never across a
+    yield: the consumer runs under the caller's cuDNN flags.
 
     With ``quantized`` the forwards are int8 (the finest
     ``int8_float_levels`` levels in float), with activation scales
@@ -135,8 +174,9 @@ def fullres_batches(
         from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
         projs, rots = read_batch(0, batch_size)
-        fwds = int8_forwards(models, [prep(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))],
-                             int8_float_levels)
+        with measured_algorithms():
+            fwds = int8_forwards(models, [prep(torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev))],
+                                 int8_float_levels)
     if mesh is not None:
         for model in models:
             shard, _ = fullres_shard(model, mesh, ds_factor, pad_img_dim, full_hw)
@@ -207,7 +247,8 @@ def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
         count("host_syncs")
         return x.cpu().numpy()
 
-    run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
+    with measured_algorithms():
+        run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
     sync()
 
     for i0 in range(0, n, batch_size):
@@ -223,8 +264,9 @@ def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
             t0 = time.perf_counter()
             with span("fullres.copy_up", i0):
                 projs, rots = torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev)
-            with span("fullres.forward", i0):
+            with span("fullres.forward", i0), measured_algorithms():
                 labels, heats = run(projs, rots)
+                count("measured_algo_runs")
             with span("fullres.sync", i0):
                 sync()
             elapsed = time.perf_counter() - t0

@@ -9,8 +9,10 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
 - ``span``, ``count``, ``recorded``, ``reset``: the program's spans
   (``fit.*`` in ``train/loop.py``, ``fullres.*`` in ``infer/fullres.py``,
   ``landmarks.detect``) and counters (``host_syncs``, each blocking read
-  of the device on those paths). They record only while a
-  ``torch.profiler`` session is active on the calling thread (as
+  of the device on those paths; ``measured_algo_runs``, each full-res
+  batch forward run under ``infer/fullres.py::measured_algorithms``).
+  They record only while a ``torch.profiler`` session is active on the
+  calling thread (as
   ``torch.autograd._profiler_enabled()`` reports), into memory, and write
   nothing: a span is then also a ``record_function`` range of the same
   name, and its start and end are ``time.time_ns()``, the clock the

@@ -7,7 +7,11 @@ the JAX package's exporter and read by both packages' loaders.
 Raw 148^2 frames come from the full-res fixture (crop 48^2, 2x -> 24^2
 padded to 36^2). Tolerances: heats within 1e-4 (float32 on both sides,
 convolutions summed in another order); labels equal wherever JAX's top
-two mean probabilities differ by more than 1e-4."""
+two mean probabilities differ by more than 1e-4. The cuDNN flags that
+``fullres_batches`` sets around its forwards (``measured_algorithms``)
+are read by hooks; they have no JAX counterpart."""
+
+import contextlib
 
 import h5py
 import jax.numpy as jnp
@@ -33,6 +37,14 @@ from test_torch_port_infer import _export, _jax_members
 ATOL = 1e-4
 MARGIN = 1e-4
 CFG = dict(num_classes=7, depth=3, init_feats_exp=2, batch_norm=True, padding=True, no_max_pool=True, num_lands=14)
+CUDNN_FLAGS = ("benchmark", "deterministic", "benchmark_limit", "allow_tf32", "enabled")
+# the caller's cuDNN flags: the recipe's (TF32 off), and a caller who
+# already asked for deterministic algorithms and for every candidate to be
+# timed, with TF32 on and cuDNN off
+CALLERS = {
+    "float32": dict(benchmark=False, deterministic=False, benchmark_limit=10, allow_tf32=False, enabled=True),
+    "deterministic": dict(benchmark=False, deterministic=True, benchmark_limit=0, allow_tf32=True, enabled=False),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,6 +157,63 @@ def test_fullres_batches_pad_the_final_batch_and_time_real_frames(nets):
                                         hw, 14)
     np.testing.assert_array_equal(np.concatenate([l for _, l, _ in batches]), labels.numpy())
     np.testing.assert_allclose(np.concatenate([h for _, _, h in batches]), heats.numpy(), atol=1e-6)
+
+
+def cudnn_flags() -> dict:
+    return {k: getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS}
+
+
+@contextlib.contextmanager
+def as_caller(flags):
+    """Set the cuDNN flags ``flags`` for the body, the test's own back after."""
+    saved = cudnn_flags()
+    for k, v in flags.items():
+        setattr(torch.backends.cudnn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(torch.backends.cudnn, k, v)
+
+
+def inside_scope(caller) -> dict:
+    """The flags a forward of ``fullres_batches`` runs under."""
+    return dict(caller, benchmark=True, deterministic=True, benchmark_limit=tfull.MEASURED_CANDIDATES)
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+@pytest.mark.parametrize("consumer", ["reads_every_batch", "closes_early", "run_raises"])
+def test_fullres_forwards_measure_algorithms_and_the_caller_keeps_its_flags(nets, caller, consumer):
+    """The warm-up and every batch's member calls run with cuDNN's
+    benchmark and deterministic on, ``MEASURED_CANDIDATES`` candidates
+    timed, and the caller's TF32 and ``enabled``; the caller's flags are
+    back while the consumer holds a batch, after an early ``close()``, and
+    after an exception inside the forward."""
+    model = load_net_from_checkpoint(nets[2][0], device="cpu", verbose=False)[0]
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
+    seen = []
+
+    def record(module, args, out):
+        seen.append(cudnn_flags())
+        if consumer == "run_raises" and len(seen) == 2:
+            raise RuntimeError("forward failed")
+
+    model.register_forward_hook(record)
+    with as_caller(CALLERS[caller]):
+        gen = tfull.fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5, (148, 148),
+                                    [model], 2, 14, None, 2, 36)
+        if consumer == "run_raises":
+            with pytest.raises(RuntimeError, match="forward failed"):
+                next(gen)
+        else:
+            for _ in gen:
+                assert cudnn_flags() == CALLERS[caller]
+                if consumer == "closes_early":
+                    gen.close()
+        assert cudnn_flags() == CALLERS[caller]
+    # the warm-up and then one call a batch
+    assert len(seen) == {"reads_every_batch": 4, "closes_early": 2, "run_raises": 2}[consumer]
+    assert all(flags == inside_scope(CALLERS[caller]) for flags in seen)
 
 
 def test_wrong_rung_int8_and_missing_card_are_refused(tmp_path, archive, nets):

@@ -49,6 +49,7 @@ from deepfluoro_tpu_torch.models import UNet
 from deepfluoro_tpu_torch.ops import int8_conv
 from deepfluoro_tpu_torch.utils import profiling
 from test_quantized import CONFIGS, _selector_kernel
+from test_torch_port_fullres import CALLERS, as_caller, cudnn_flags, inside_scope
 from test_torch_port_infer import _export, _jax_members
 
 IDS = ["paper", "upsample", "circ", "valid"]
@@ -602,6 +603,36 @@ def test_fullres_batches_int8_calibrate_on_the_first_batch():
     heats = (heats - hmin) / (heats.amax(dim=(1, 2, 3), keepdim=True) - hmin)
     np.testing.assert_array_equal(np.concatenate([l for _, l, _ in got]), labels.numpy())
     np.testing.assert_allclose(np.concatenate([h for _, _, h in got]), heats.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_fullres_batches_int8_calibrate_and_run_under_measured_algorithms(caller, monkeypatch):
+    """The int8 calibration forward and every int8 batch forward run under
+    the flags of ``fullres_batches``' float forwards, with the caller's
+    TF32 and ``enabled``; the caller's flags are back while the consumer
+    holds a batch and after the generator ends."""
+    jcfg = JaxTrainConfig(**CFG, proj_unet_dim=36)
+    _, members = _jax_members(jcfg, 1, seed=33)
+    (model,) = _port_models(members)
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
+    seen = {"calibrate": [], "forward": []}
+
+    def recorded(fn, key):
+        def call(*args, **kw):
+            seen[key].append(cudnn_flags())
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(tq, "calibration_stats", recorded(tq.calibration_stats, "calibrate"))
+    monkeypatch.setattr(tq, "quantized_apply", recorded(tq.quantized_apply, "forward"))
+    with as_caller(CALLERS[caller]):
+        for _ in fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5, (148, 148), [model],
+                                 2, 14, None, 2, 36, quantized=True, int8_float_levels=1):
+            assert cudnn_flags() == CALLERS[caller]
+        assert cudnn_flags() == CALLERS[caller]
+    # one calibration forward on the first batch; the warm-up and three batches
+    assert [len(seen["calibrate"]), len(seen["forward"])] == [1, 4]
+    assert all(flags == inside_scope(CALLERS[caller]) for flags in seen["calibrate"] + seen["forward"])
 
 
 # -- profiling ----------------------------------------------------------------------

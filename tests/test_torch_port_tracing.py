@@ -5,7 +5,8 @@ under one, every span is recorded with its id and parent, on the
 profiler's clock (within 1 ms of its user annotation of the same name;
 the fit compared writes its checkpoints on the calling thread, so that
 no second thread takes the interpreter lock between the two clock
-reads), and ``host_syncs`` counts the blocking reads of the device. The recorder
+reads), ``host_syncs`` counts the blocking reads of the device and
+``measured_algo_runs`` the full-res batch forwards. The recorder
 has no JAX counterpart. Sizes: a depth-2, wf-2 net, 32^2 frames padded to
 36 for fit, raw 148^2 frames (2x: 24^2 padded to 28) for the full-res
 path."""
@@ -176,8 +177,20 @@ def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(fullres_traced):
         timed = sum(s.ms for s in parts if s.name != "fullres.readback")
         want = 1e3 * times[i0] * real[i0]
         assert abs(timed - want) <= max(0.1 * want, 1.0), (i0, timed, want)
-    # the warm-up's synchronise, then a synchronise and two readbacks a batch
-    assert counts == {"host_syncs": 1 + 3 * len(batches)}
+    # the warm-up's synchronise, then a synchronise and two readbacks a
+    # batch; one forward under measured algorithms a batch
+    assert counts == {"host_syncs": 1 + 3 * len(batches), "measured_algo_runs": len(batches)}
+
+
+def test_measured_algo_runs_counts_each_batch_forward_only_under_a_profiler(fullres_traced):
+    """One a batch, as many as the recorded forwards (the warm-up forward
+    runs under the same scope but is no batch); nothing without a
+    profiler."""
+    batches, _, _, _, spans, counts = fullres_traced
+    assert counts["measured_algo_runs"] == len(batches) == len(_named(spans, "fullres.forward")) == 3
+    profiling.reset()
+    _fullres()
+    assert "measured_algo_runs" not in profiling.recorded()[1]
 
 
 def test_a_batch_span_ends_before_its_consumer_holds_the_batch(fullres_traced):
