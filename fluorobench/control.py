@@ -9,15 +9,18 @@ numbers against the float64 reference and ``correct`` and, without
 ``--fault``, the control's numbers and ``control_correct``: the reference
 at the precision below the configuration's (float32 with TF32 on) put in
 the program's place and held to the cell's limits by the same check.
-With ``--fault`` a fault of ``faults.py`` is planted under the timed path
-and the program's numbers are read with it. The benchmark's own runs never run this.
+With ``--fault`` a fault (``faults.py``'s, or the runner's own) is planted
+under the timed path and the program's numbers are read with it. A cell of
+several cards runs all its seeds in one launch of its ranks
+(``ranks.py``), whose rank 0 prints each line. The benchmark's own runs
+never run this.
 """
 
 import argparse
 import gc
-import importlib
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -36,18 +39,22 @@ def main(argv=None) -> int:
     cache_env(ROOT)
     import torch
 
-    from fluorobench import faults, harness
+    from fluorobench import faults, harness, ranks
 
     cell = harness.load_cell(ROOT, args.workload)
-    if not torch.cuda.is_available():
-        print("no CUDA card", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print("cell {} needs {} CUDA card(s)".format(cell.name, cell.chips), file=sys.stderr)
         return 2
     seeds = [int(s) for s in args.seeds.split(",")]
-    runner = importlib.import_module("fluorobench.runners.{}".format(cell.traffic["runner"]))
+    runner = harness.load_runner(cell)
+    if cell.chips > 1:
+        ranks.launch(cell, seeds, args.seconds, False, time.time(), fault=args.fault, control=True,
+                     timeout=ranks.DEADLINE_S + 120.0 * len(seeds))
+        return 0
     for seed in seeds:
         run = harness.Run(cell=cell, seed=seed, seconds=args.seconds, trace=False, device=torch.device("cuda", 0))
         torch.cuda.reset_peak_memory_stats()
-        with faults.planted(args.fault):
+        with faults.planted(args.fault, runner):
             runner.main(run)
         print(json.dumps(harness.control_line(run, runner, args.fault)), flush=True)
         del run

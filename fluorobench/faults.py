@@ -1,10 +1,15 @@
 """Faults planted under the timed path, to show that ``correct`` catches
 them (``control.py --fault``, ``tests/test_fluorobench_cells.py``). Each
-is a context manager that patches the program while it is open.
+is a context manager that patches the program while it is open; a cell of
+several cards plants it in each of its processes. Which faults a cell can
+have, its runner's ``faults(cell)`` says; a runner may define faults of
+its own in a ``FAULTS`` dict, found beside these.
 
 - ``unchanged``: every optimizer step returns the state as it was;
 - ``half_batch``: the loss is the mean over the first half of the batch,
   the rest left out;
+- ``no_exchange``: the ranks of a data-parallel step skip the gradient
+  all-reduce, each stepping on its own slice's gradient and loss;
 - ``altered``: one label of every frame is changed where the ensemble
   produces it.
 """
@@ -43,6 +48,12 @@ def half_batch():
     return _patched(step, "per_sample_losses", replacement)
 
 
+def no_exchange():
+    from deepfluoro_tpu_torch.train import step
+
+    return _patched(step, "average_gradients", lambda orig: lambda params, loss, axis: loss)
+
+
 def altered():
     from deepfluoro_tpu_torch.infer import fullres
 
@@ -59,9 +70,15 @@ def altered():
     return _patched(fullres, "ensemble_forward", replacement)
 
 
-FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "altered": altered}
+FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "no_exchange": no_exchange, "altered": altered}
 
 
-def planted(name: str | None):
-    """The fault ``name`` as a context manager (None: none)."""
-    return contextlib.nullcontext() if name in (None, "none") else FAULTS[name]()
+def planted(name: str | None, runner=None):
+    """The fault ``name`` (this module's, or else ``runner``'s own) as a
+    context manager (None: none)."""
+    if name in (None, "none"):
+        return contextlib.nullcontext()
+    found = {**getattr(runner, "FAULTS", {}), **FAULTS}
+    if name not in found:
+        raise KeyError("no fault {!r}; known: {}".format(name, ", ".join(sorted(found))))
+    return found[name]()

@@ -9,6 +9,12 @@ A cell's configuration is ``configs/<config>.json``, its traffic
 per-layer metric a reader ``metrics/<metric>.py`` with ``read(run)``
 returning a number or None. ``BENCHMARK.json`` at the checkout's root
 says which cell takes which configuration, traffic and metrics.
+
+A runner module has ``main(run)`` (set-up, the window, the check),
+``check(run, num)`` and ``CONTROL`` (the control's numerics),
+``faults(cell)`` (the names of the faults the cell can have: ``faults.py``'s
+or the runner's own ``FAULTS``), and ``test_size(cell)`` (the cell cut to
+what the CPU tests run in seconds, and its window's seconds there).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
 import json
 import math
@@ -53,9 +60,10 @@ class Cell:
     per_layer: list
 
 
-def load_cell(root: Path, name: str) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` with its files."""
-    bench = read_json(root / "BENCHMARK.json")
+def load_cell(root: Path, name: str, bench: dict | None = None) -> Cell:
+    """The cell ``name`` of ``bench`` (by default ``root/BENCHMARK.json``)
+    with its files."""
+    bench = bench or read_json(root / "BENCHMARK.json")
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise SystemExit("no workload {!r} in BENCHMARK.json".format(name))
@@ -67,6 +75,11 @@ def load_cell(root: Path, name: str) -> Cell:
     layer = [m for m in bench["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
     return Cell(name, config, traffic, limits, int(entry["chips"]), e2e, layer)
+
+
+def load_runner(cell: Cell):
+    """The module under ``runners/`` that the cell's traffic names."""
+    return importlib.import_module("fluorobench.runners.{}".format(cell.traffic["runner"]))
 
 
 def load_reader(metric: str):
@@ -220,6 +233,7 @@ class Run:
     trace: bool
     device: torch.device
     chips: int = 1
+    rank: int = 0  # this process's among the cell's processes, one a card; rank 0 checks and reports
     t_start: float = dataclasses.field(default_factory=time.perf_counter)
     spans: Spans = dataclasses.field(default_factory=Spans)
     setup_s: float | None = None
@@ -310,14 +324,16 @@ def result(run: Run) -> dict:
 
 
 def mfu_pct(run: Run) -> float | None:
-    """The window's share of the card's float32 peak: the operations
+    """The window's share of its cards' float32 peak: the operations
     ``counts.py`` works out from the configuration's shapes for each frame
-    completed, times the frames, over the window, in %."""
+    completed (on all cards), times the frames, over the window and the
+    run's cards, in %."""
     from fluorobench import counts
 
     if not run.values.get("frames") or not run.window_s:
         return None
-    return 100.0 * run.values["flops_per_frame"] * run.values["frames"] / run.window_s / counts.FP32_FLOPS_PER_S
+    peak = run.chips * counts.FP32_FLOPS_PER_S
+    return 100.0 * run.values["flops_per_frame"] * run.values["frames"] / run.window_s / peak
 
 
 def idle_pct(run: Run) -> float | None:
@@ -329,26 +345,34 @@ def idle_pct(run: Run) -> float | None:
     return 100.0 * (1.0 - t.busy_s / t.window_s)
 
 
-def report(run: Run, out=None, err=None) -> int:
-    """Print the run's last lines: what the check compared on ``err``
-    (standard error), the result object on ``out`` (standard output).
-    Returns the exit code."""
-    out, err = out or sys.stdout, err or sys.stderr
-    print("card after the window: {}".format(run.values.get("card")), file=err)
-    found = loaded_forbidden()
-    if found:
-        print("loaded in this process: {}".format(", ".join(found)), file=err)
-        return 3
+def summary(run: Run) -> dict:
+    """What a run prints at its end: ``err``, the lines for standard error
+    (what the check compared last), and ``line``, the result object."""
+    err = ["card after the window: {}".format(run.values.get("card"))]
     t0 = time.perf_counter()
     line = result(run)
-    print("card at the end: {}; setup_s {:.4f}; window_s {:.4f}; check_s {}; trace_s {}; result_s {:.3f}".format(
+    err.append("card at the end: {}; setup_s {:.4f}; window_s {:.4f}; check_s {}; trace_s {}; result_s {:.3f}".format(
         card_power_limit(), run.setup_s, run.window_s, run.values.get("check_s"),
-        getattr(run.trace_summary, "reduce_s", None), time.perf_counter() - t0), file=err)
-    print("set-up: " + ", ".join("{} {:.3f} s".format(k, sum(v)) for k, v in run.spans.times.items()
-                                 if k.startswith("setup.")), file=err)
+        getattr(run.trace_summary, "reduce_s", None), time.perf_counter() - t0))
+    err.append("set-up: " + ", ".join("{} {:.3f} s".format(k, sum(v)) for k, v in run.spans.times.items()
+                                      if k.startswith("setup.")))
     for name, v, lim in run.checks:
-        print("check {}: {} (limit {}){}".format(name, v, lim, "" if v <= lim else "  FAILED"), file=err)
-    print(json.dumps(line), file=out, flush=True)
+        err.append("check {}: {} (limit {}){}".format(name, v, lim, "" if v <= lim else "  FAILED"))
+    return {"err": err, "line": line}
+
+
+def emit(summary: dict, elsewhere=()) -> int:
+    """Print a ``summary``: its lines on standard error, its result object
+    on standard output; nothing on standard output when JAX or the JAX
+    package is loaded in this process or, as ``elsewhere`` lists, in
+    another process of the run. Returns the exit code."""
+    found = sorted(set(loaded_forbidden()) | set(elsewhere))
+    if found:
+        print("loaded in the run's processes: {}".format(", ".join(found)), file=sys.stderr)
+        return 3
+    for text in summary["err"]:
+        print(text, file=sys.stderr)
+    print(json.dumps(summary["line"]), flush=True)
     return 0
 
 

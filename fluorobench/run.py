@@ -13,7 +13,10 @@ result line's ``checks``. The last line of standard output is the result.
 
 The run refuses to start without as many CUDA cards as the cell asks for,
 and fails if JAX or the JAX package is loaded in this process after
-set-up or after the window. Build and kernel caches stay in ``build/``
+set-up or after the window. A cell of several cards runs one process per
+card (``ranks.py``); this process waits for them with a deadline and
+prints what rank 0 reports, and fails with the rank's message when one
+fails or the deadline passes. Build and kernel caches stay in ``build/``
 inside the checkout.
 """
 
@@ -22,7 +25,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -54,7 +56,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from fluorobench import harness
+    from fluorobench import harness, ranks
 
     cell = harness.load_cell(ROOT, args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -73,15 +75,18 @@ def main(argv=None) -> int:
 
     print("torch and the program loaded at {:.3f} s".format(time.perf_counter() - T_START), file=sys.stderr)
     if cell.chips > 1:
-        print("cell {} asks for {} cards; the harness runs cells of one card".format(cell.name, cell.chips),
-              file=sys.stderr)
-        return 2
+        wall_start = time.time() - (time.perf_counter() - T_START)
+        try:
+            (report,) = ranks.launch(cell, [args.seed], args.seconds, bool(args.trace), wall_start)
+        except (RuntimeError, TimeoutError) as e:
+            print("cell {} failed on its {} cards: {}".format(cell.name, cell.chips, e), file=sys.stderr)
+            return 1
+        return harness.emit(report, elsewhere=report["forbidden"])
     run = harness.Run(cell=cell, seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
                       device=torch.device("cuda", 0), chips=cell.chips, t_start=T_START)
     torch.cuda.reset_peak_memory_stats()
-    runner = importlib.import_module("fluorobench.runners.{}".format(cell.traffic["runner"]))
-    runner.main(run)
-    return harness.report(run)
+    harness.load_runner(cell).main(run)
+    return harness.emit(harness.summary(run))
 
 
 if __name__ == "__main__":

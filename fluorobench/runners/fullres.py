@@ -24,6 +24,7 @@ and heats.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import statistics
@@ -43,6 +44,21 @@ from fluorobench.traffic.fullres_frames import make_raw_frames
 REFERENCE = Numerics(torch.float64)
 CONTROL = Numerics(torch.float32, tf32=True)
 CALIBRATION_FRAMES = 4
+
+
+def faults(cell) -> list[str]:
+    """The planted faults an inference cell can have (``faults.py``)."""
+    return ["altered"]
+
+
+def test_size(cell):
+    """The cell cut to what the CPU runs in seconds (depth 2, wf 2; raw
+    frames of 148^2 at the 2x factor, 24^2 padded to 28, a pool of four),
+    and its window's seconds."""
+    cut = dataclasses.replace(
+        cell, config=dict(cell.config, depth=2, init_feats_exp=2, raw_frame=148, proj_unet_dim=28, ds_factor=2),
+        traffic=dict(cell.traffic, pool_frames=4, warmup_items=1, check_frames=3))
+    return cut, 0.5
 
 
 def member_seed(seed: int, k: int) -> int:

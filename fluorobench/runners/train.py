@@ -12,6 +12,12 @@ next would overrun the window (``max_hours``, set when the window opens);
 the window's wall time holds the epochs' steps, validation, and the
 checkpoint write on exit.
 
+A cell of several cards runs one such process per card (``ranks.py``),
+data-parallel over ``{'data': chips}`` with the configuration's batch on
+each card: one ``fit(mesh=...)`` call a process, BatchNorm over the global
+batch, one warp launch a step on each card; rank 0 reports and checks,
+against the reference stepping the global batch.
+
 ``correct`` follows two stretches of ``checked_steps`` steps of that one
 ``fit`` call: ``start``, its first steps from the seeded weights, and
 ``window``, the first steps of the window's epoch ``checked_epoch``: timed
@@ -38,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fluorobench import counts, weights
 from fluorobench.harness import Trace, card_power_limit, relative_gap
@@ -47,6 +54,23 @@ from fluorobench.traffic.specimens import make_archive
 
 REFERENCE = Numerics(torch.float64)
 CONTROL = Numerics(torch.float32, tf32=True)
+
+
+def faults(cell) -> list[str]:
+    """The planted faults a training cell can have (``faults.py``)."""
+    return ["unchanged", "half_batch"] + (["no_exchange"] if cell.chips > 1 else [])
+
+
+def test_size(cell):
+    """The cell cut to what the CPU runs in seconds (depth 2, wf 2, frames
+    of 32^2 padded to 36, six frames a specimen for each card), and its
+    window's seconds: enough to hold the checked epoch, the second after
+    the warm-up, at 40-50 ms a CPU step on one card and 65-120 ms on four
+    gloo ranks."""
+    cut = dataclasses.replace(
+        cell, config=dict(cell.config, depth=2, init_feats_exp=2, frame=32, proj_unet_dim=36),
+        traffic=dict(cell.traffic, frames_per_specimen=6 * cell.chips))
+    return cut, 2.0 if cell.chips == 1 else 4.0
 
 
 def train_config(cfg: dict, seed: int, **over):
@@ -155,33 +179,57 @@ def make_data(run):
     return data, [int(i) for i in order[:n_train]], [int(i) for i in order[n_train:]]
 
 
+def frames_per_epoch(n_train: int, batch: int, world: int) -> int:
+    """The training frames one epoch runs: ``fit`` skips a final global
+    batch that does not split evenly over the data axis's ``world`` ranks."""
+    tail = n_train % batch
+    return n_train - (tail % world and tail)
+
+
 def main(run) -> None:
+    """Set-up, the window and the check of one process: of the cell's only
+    card, or (``run.chips`` > 1) of one card of ``run.chips`` joined by
+    ``torch.distributed``, training data-parallel over ``{'data': chips}``
+    with the configuration's batch on each card. Rank 0 writes the
+    starting checkpoint, reports and checks; every rank records its slices
+    of the checked steps, which rank 0 gathers into global batches."""
     from deepfluoro_tpu_torch.train.checkpoint import save_checkpoint
     from deepfluoro_tpu_torch.train.config import build_model
     from deepfluoro_tpu_torch.train.loop import fit
 
     cfg, tr = run.cfg, run.traffic
+    world, lead = run.chips, run.rank == 0
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = cfg["tf32"]
     work = os.path.join(tempfile.gettempdir(), "fluorobench-{}".format(run.cell.name))
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+    if lead:
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
     ck = os.path.join(work, "zz_checkpoint.pt")
     try:
         with run.spans("setup.data"):
             data, train_idx, valid_idx = make_data(run)
         pats = sorted({int(p) for p in data.pat_inds})
-        batch, warm = cfg["batch_size"], tr["warmup_epochs"]
-        tcfg = train_config(cfg, run.seed, max_num_epochs=warm + tr["max_window_epochs"])
-        with run.spans("setup.weights"):
-            shapes, param_keys = model_shapes(tcfg)
-            w0 = weights.make_state(shapes, run.seed, run.device)
-            with torch.device("meta"):
-                model = build_model(tcfg)
-            model = model.to_empty(device=run.device)
-            model.load_state_dict(w0)
-            save_checkpoint(ck, tcfg, model, epoch=0, train_idx=train_idx, valid_idx=valid_idx)
-            del model
-        steps_per_epoch = math.ceil(len(train_idx) / batch)
+        batch, warm = cfg["batch_size"] * world, tr["warmup_epochs"]
+        tcfg = train_config(cfg, run.seed, max_num_epochs=warm + tr["max_window_epochs"], batch_size=batch)
+        w0 = param_keys = None
+        if lead:
+            with run.spans("setup.weights"):
+                shapes, param_keys = model_shapes(tcfg)
+                w0 = weights.make_state(shapes, run.seed, run.device)
+                with torch.device("meta"):
+                    model = build_model(tcfg)
+                model = model.to_empty(device=run.device)
+                model.load_state_dict(w0)
+                save_checkpoint(ck, tcfg, model, epoch=0, train_idx=train_idx, valid_idx=valid_idx)
+                del model
+        mesh = None
+        if world > 1:
+            from deepfluoro_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh({"data": world})
+            dist.barrier()  # every rank resumes from rank 0's checkpoint
+        per_epoch = frames_per_epoch(len(train_idx), batch, world)
+        steps_per_epoch = math.ceil(per_epoch / batch)
         open_at = warm * steps_per_epoch
         n = tr["checked_steps"]
         stretches = {"start": Stretch(0, n), "window": Stretch(open_at + tr["checked_epoch"] * steps_per_epoch, n)}
@@ -203,7 +251,7 @@ def main(run) -> None:
                      train_loss_txt=os.path.join(work, "train_iter_loss.txt"),
                      valid_loss_txt=os.path.join(work, "valid_loss.txt"), verbose=False, device=run.device)
         with contextlib.ExitStack() as stack, rec:
-            res = fit(data, pats, tcfg, **files)
+            res = fit(data, pats, tcfg, mesh=mesh, **files)
             run.sync()
             if "t0" not in clock:
                 raise RuntimeError("fit stopped after {} steps, before the window opened at step {}".format(
@@ -214,7 +262,7 @@ def main(run) -> None:
         for st in stretches.values():
             st.losses = list(res["train_losses"][st.first : st.first + st.n])
         epochs = int(res["epoch"]) - warm
-        frames = epochs * len(train_idx)
+        frames = epochs * per_epoch
         run.attempted = frames
         run.end_to_end["train_frames_per_s"] = frames / run.window_s
         steps = list(res["step_seconds"][open_at:])
@@ -223,17 +271,36 @@ def main(run) -> None:
                           flops_per_frame=counts.train_step_flops(cfg, cfg["frame"]),
                           warp_bound_s=counts.warp_pair_bound_s(cfg["batch_size"], cfg["frame"],
                                                                 counts.pad_size(cfg, cfg["frame"])))
-        print("{} epochs, {} steps: step median {:.3f} ms, steps {:.3f} s of the window's {:.3f} s".format(
-            epochs, len(steps), 1e3 * float(np.median(steps)), sum(steps), run.window_s), file=sys.stderr)
+        print("rank {}: {} epochs, {} steps: step median {:.3f} ms, steps {:.3f} s of the window's {:.3f} s".format(
+            run.rank, epochs, len(steps), 1e3 * float(np.median(steps)), sum(steps), run.window_s), file=sys.stderr)
         run.read_peak()
         del res
         gc.collect()
         if run.device.type == "cuda":
             torch.cuda.empty_cache()
-        run.check_inputs = dict(w0=w0, param_keys=param_keys, stretches=stretches)
-        check(run)
+        if world > 1:
+            gather_batches(stretches, world)
+        if lead:
+            run.check_inputs = dict(w0=w0, param_keys=param_keys, stretches=stretches)
+            check(run)
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if lead:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def gather_batches(stretches: dict, world: int) -> None:
+    """Replace each recorded step's batch, this rank's slice, by the global
+    batch: every rank's slice in rank order (``fit`` hands rank r the
+    contiguous rows r * b to (r + 1) * b of each global batch). Every rank
+    calls this, with the same stretches."""
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    for st in stretches.values():
+        for step in st.steps:
+            step["batch"] = tuple(None if a is None else gather(a) for a in step["batch"])
 
 
 def replay_steps(stretch: Stretch, device):

@@ -25,7 +25,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="session")
 def _threads():
     import torch
 

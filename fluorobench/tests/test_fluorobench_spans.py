@@ -1,105 +1,86 @@
-"""The readers of the program's spans and counters: each returns its value
-from a recorder that holds a handmade set of spans and counters, None from
-an empty one and from a program without the recorder, and each reads a
-number in a traced run of its cell on the CPU."""
+"""The readers of the program's spans and counters.
 
+Every per-layer metric of ``BENCHMARK.json`` whose source is a program span
+or counter and whose reader reads the program's recording (through
+``program_spans.py``) has a case, ``cases/<metric>.py``: a hand-made
+recording (``recording()``), the runner's own readings it needs
+(``VALUES``, optional) and the value expected from them (``WANT``). A
+reader without a case fails, and so does a case without a reader. Each
+reader returns its case's value, None from an empty recorder and from a
+program without the recorder, and reads a number in a traced run of each
+of its one-card cells on the CPU (within ``TRACED``, where a case gives
+it)."""
+
+import importlib.util
 import json
 
 import pytest
 
 from deepfluoro_tpu_torch.utils import profiling
 from fluorobench import harness
-from fluorobench.runners import fullres, train
 from fluorobench.tests.small import ROOT, small_run
 
-MS = 1_000_000
-NEW = {m["name"]: m for m in json.loads((ROOT / "BENCHMARK.json").read_text())["per_layer"]
-       if m["source"] in ("program_span", "program_counter") and m["name"] not in
-       ("step_ms.train", "epoch_overhead_ms.train", "batch_ms.infer")}
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CASES = {p.name[: -len(".py")]: p for p in sorted((ROOT / "fluorobench" / "tests" / "cases").glob("*.py"))}
+PROGRAM = {m["name"]: m for m in BENCH["per_layer"] if m["source"] in ("program_span", "program_counter")}
+ONE_CARD = [w["name"] for w in BENCH["workloads"] if w["chips"] == 1]
 
 
-def _span(name, id, t0_ms, t1_ms, parent=None):
-    return profiling.Span(name, id, parent, int(t0_ms * MS), int(t1_ms * MS))
+def reads_the_recording(metric: str) -> bool:
+    """Whether the reader of ``metric`` reads the program's spans and
+    counters, which it reaches through ``program_spans.py``."""
+    return "program_spans" in (ROOT / "fluorobench" / "metrics" / "{}.py".format(metric)).read_text()
 
 
-def _handmade():
-    """Two epochs of three steps, then two batches of the full-res path and
-    two landmark decodes, with round durations."""
-    spans = []
-    for e in range(2):
-        epoch = _span("fit.epoch", e, 100 * e, 100 * e + 90)
-        for k in range(3):
-            step = 3 * e + k
-            spans += [_span("fit.step", step, 100 * e + 10 * k, 100 * e + 10 * k + 4 + step, epoch),
-                      _span("fit.loss_readback", step, 100 * e + 10 * k + 5, 100 * e + 10 * k + 6 + e, epoch)]
-        spans += [_span("fit.validation", e, 100 * e + 40, 100 * e + 60 + 10 * e, epoch),
-                  _span("fit.checkpoint", e + 1, 100 * e + 70, 100 * e + 73, epoch), epoch]
-    spans.append(_span("fit.checkpoint_wait", None, 200, 206))
-    for b, i0 in enumerate((0, 4)):
-        t = 300 + 100 * b
-        batch = _span("fullres.batch", i0, t, t + 90)
-        spans += [_span("fullres.copy_up", i0, t, t + 1 + b, batch),
-                  _span("fullres.forward", i0, t + 2, t + 32 + 2 * b, batch),
-                  _span("fullres.sync", i0, t + 40, t + 45 + 4 * b, batch),
-                  _span("fullres.readback", i0, t + 50, t + 52 + 2 * b, batch), batch,
-                  _span("landmarks.detect", None, t + 91, t + 93 + b)]
-    return spans, {"host_syncs": 8}
-
-
-WANT = {
-    "step_dispatch_ms.train": 6.5,  # steps of 4..9 ms
-    "loss_wait_ms.train": 1.5,  # 1, 1, 1, 2, 2, 2
-    "validation_ms.train": 25.0,  # 20 and 30
-    "checkpoint_ms.train": 6.0,  # (3 + 3 + 6) / 2 epochs
-    "syncs_per_step.train": 8 / 6,
-    "dispatch_ms.latency": 31.0,  # 30 and 32
-    "device_wait_ms.latency": 7.0,  # 5 and 9
-    "copy_ms.latency": 4.5,  # 1 + 2 and 2 + 4
-    "landmark_decode_ms.latency": 2.5,  # 2 and 3
-    "readback_ms.infer": 3.0,  # 2 and 4
-    "device_wait_ms.infer": 7.0,
-}
+def load_case(name: str):
+    spec = importlib.util.spec_from_file_location("fluorobench_case_{}".format(name.replace(".", "_")), CASES[name])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _run(name):
-    run = small_run(NEW[name]["workloads"][0], trace=True)
-    run.values["epochs"] = 2
+    run = small_run(PROGRAM[name]["workloads"][0], trace=True)
+    run.values.update(getattr(load_case(name), "VALUES", {}))
     return run
 
 
 def test_every_new_reader_has_an_expected_value():
-    assert set(WANT) == set(NEW) and len(NEW) == 11
+    new = {n for n in PROGRAM if reads_the_recording(n)}
+    assert new == set(CASES), {"readers without a case": sorted(new - set(CASES)),
+                               "cases without a reader": sorted(set(CASES) - new)}
+    assert all(hasattr(load_case(n), "WANT") for n in CASES)
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_reader_reads_a_handmade_recording(name, monkeypatch):
-    monkeypatch.setattr(profiling, "recorded", _handmade)
-    assert harness.load_reader(name)(_run(name)) == pytest.approx(WANT[name])
+    case = load_case(name)
+    monkeypatch.setattr(profiling, "recorded", case.recording)
+    assert harness.load_reader(name)(_run(name)) == pytest.approx(case.WANT)
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_reader_returns_none_from_an_empty_recorder(name):
     profiling.reset()
     assert harness.load_reader(name)(_run(name)) is None
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_reader_returns_none_from_a_program_without_the_recorder(name, monkeypatch):
     monkeypatch.delattr(profiling, "recorded")
     assert harness.load_reader(name)(_run(name)) is None
 
 
-@pytest.mark.parametrize("cell", ["train-8x", "latency-8x", "fullres-2x"])
+@pytest.mark.parametrize("cell", ONE_CARD)
 def test_a_traced_cpu_run_reads_each_new_metric_of_its_cell(cell):
     profiling.reset()
     run = small_run(cell, trace=True)
-    {"train": train, "fullres": fullres}[run.traffic["runner"]].main(run)
+    harness.load_runner(run.cell).main(run)
     got = harness.result(run)["metrics"]
     profiling.reset()
-    mine = {n for n, m in NEW.items() if cell in m["workloads"]}
-    assert mine and mine <= set(got), sorted(mine - set(got))
+    mine = {n for n in CASES if cell in PROGRAM[n]["workloads"]}
+    assert mine <= set(got), sorted(mine - set(got))
     assert all(got[n]["value"] > 0 for n in mine), {n: got[n] for n in mine}
-    if cell == "train-8x":
-        # the window's first step began before the trace: one loss read
-        # more than recorded steps, and one validation read an epoch
-        assert 1.0 < got["syncs_per_step.train"]["value"] < 1.5
+    for n in mine:
+        lo, hi = getattr(load_case(n), "TRACED", (0.0, float("inf")))
+        assert lo < got[n]["value"] < hi, (n, got[n])
