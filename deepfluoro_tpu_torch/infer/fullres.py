@@ -40,6 +40,7 @@ import torch.distributed as dist
 
 from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, fullres_shard, make_fullres_prep
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
+from deepfluoro_tpu_torch.models.unet import UNet
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
 from deepfluoro_tpu_torch.parallel.sharding import gather_bands
 from deepfluoro_tpu_torch.utils.profiling import count, span
@@ -162,6 +163,8 @@ def fullres_batches(
     for model in models:
         model.eval().set_bands(None)
     if mesh is not None:
+        if not all(isinstance(m, UNet) for m in models):
+            raise ValueError("full-res inference on a mesh shards U-Net members only; TransUNet runs on one device")
         if set(mesh.axis_names) - {"data", "spatial"}:
             raise ValueError("full-res inference shards over 'data' and 'spatial' axes only; got {}".format(mesh.axes))
         if batch_size % mesh.axis("data").size:

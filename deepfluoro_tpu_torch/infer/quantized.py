@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from deepfluoro_tpu_torch.compat.from_jax import _entries
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward
-from deepfluoro_tpu_torch.models.unet import crop_to
+from deepfluoro_tpu_torch.models.unet import UNet, crop_to
 from deepfluoro_tpu_torch.ops.int8_conv import gemm_weight, int8_conv2d, int8_conv_transpose2x2
 from deepfluoro_tpu_torch.parallel.halo import band_op
 
@@ -351,6 +351,8 @@ def int8_forwards(models, calib_inputs, float_levels: int = 0) -> list:
     """``member_forwards`` of ``models`` calibrated and weight-quantized on
     ``calib_inputs``, the finest ``float_levels`` levels in float: what
     the ensemble and full-res loops run in place of the modules."""
+    if not all(isinstance(m, UNet) for m in models):
+        raise ValueError("int8 inference quantizes U-Net members only; TransUNet runs in float32")
     int8_points = make_level_filter(float_levels, len(models[0].down_path))
     return member_forwards(prepare_quantized_ensemble(models, calib_inputs), int8_points)
 

@@ -3,6 +3,13 @@ config.py``): one dataclass that is the CLI surface, the architecture spec
 and the checkpoint metadata, under the reference's key names
 (train.py:475-513) so the JAX package and the reference read this port's
 checkpoints.
+
+``arch`` picks the network: ``'unet'`` (the recipe's U-Net, the default)
+or ``'transunet'`` (``models/transunet.py``, TransUNet R50-ViT, which has
+no JAX counterpart; its sizes default to R50-ViT-B/16 and its grid is
+``proj_unet_dim / 16``). A U-Net's checkpoint meta holds the JAX
+package's keys and no others; a TransUNet's adds ``arch`` and its sizes,
+and a meta without ``arch`` is a U-Net's.
 """
 
 from __future__ import annotations
@@ -10,8 +17,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn as nn
 
+from deepfluoro_tpu_torch.models.transunet import TransUNet
 from deepfluoro_tpu_torch.models.unet import UNet
+
+ARCHS = ("unet", "transunet")
 
 
 @dataclasses.dataclass
@@ -62,6 +73,16 @@ class TrainConfig:
     # append a left/right mirror of every training sample, after the split
     # (data/hdf5.py::lr_flip_duplicate)
     dup_lr_flip: bool = False
+    # the network: 'unet' or 'transunet'; the sizes below are TransUNet's
+    arch: str = "unet"
+    hidden_size: int = 768
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    num_layers: int = 12
+    resnet_units: tuple = (3, 4, 9)
+    resnet_width: int = 64
+    gn_groups: int = 32
+    decoder_channels: tuple = (256, 128, 64, 16)
 
     _META_KEYS = {
         "num-classes": "num_classes",
@@ -98,17 +119,35 @@ class TrainConfig:
         "remat": "remat",
         "dup-lr-flip": "dup_lr_flip",
     }
+    # written only for a TransUNet
+    _TRANSUNET_META_KEYS = {
+        "arch": "arch",
+        "vit-hidden-size": "hidden_size",
+        "vit-num-heads": "num_heads",
+        "vit-mlp-dim": "mlp_dim",
+        "vit-num-layers": "num_layers",
+        "resnet-units": "resnet_units",
+        "resnet-width": "resnet_width",
+        "gn-groups": "gn_groups",
+        "decoder-channels": "decoder_channels",
+    }
 
     def to_checkpoint_meta(self) -> dict:
-        return {k: getattr(self, attr) for k, attr in self._META_KEYS.items()}
+        keys = dict(self._META_KEYS)
+        if self.arch != "unet":
+            keys.update(self._TRANSUNET_META_KEYS)
+        meta = {k: getattr(self, attr) for k, attr in keys.items()}
+        return {k: list(v) if isinstance(v, tuple) else v for k, v in meta.items()}
 
     @classmethod
     def from_checkpoint_meta(cls, meta: dict, base: "TrainConfig | None" = None) -> "TrainConfig":
-        """Stored keys override; absent ones keep ``base``'s values."""
+        """Stored keys override; absent ones keep ``base``'s values, but a
+        meta without ``arch`` is a U-Net's."""
         cfg = dataclasses.replace(base) if base is not None else cls()
-        for k, attr in cls._META_KEYS.items():
+        cfg.arch = "unet"
+        for k, attr in dict(cls._META_KEYS, **cls._TRANSUNET_META_KEYS).items():
             if k in meta:
-                setattr(cfg, attr, meta[k])
+                setattr(cfg, attr, tuple(meta[k]) if isinstance(meta[k], list) else meta[k])
         return cfg
 
     @property
@@ -118,10 +157,23 @@ class TrainConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
-def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> UNet:
-    """The U-Net train.py:313 builds from these flags. The landmark head's
-    shape is not among them (train.py leaves it at its defaults); a loader
-    passes the shape a checkpoint's keys show."""
+def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> nn.Module:
+    """The U-Net train.py:313 builds from these flags, or with ``arch``
+    'transunet' a TransUNet for ``proj_unet_dim``-square inputs (float32,
+    no remat). The landmark head's shape is not among the flags (train.py
+    leaves it at its defaults); a loader passes the shape a checkpoint's
+    keys show."""
+    if cfg.arch not in ARCHS:
+        raise ValueError("arch must be one of {}, got {!r}".format(", ".join(ARCHS), cfg.arch))
+    if cfg.arch == "transunet":
+        if cfg.dtype != torch.float32 or cfg.remat or lands_block_depth:
+            raise ValueError("TransUNet runs in float32 without remat and with a 1x1 landmark head")
+        return TransUNet(
+            n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, hidden=cfg.hidden_size,
+            heads=cfg.num_heads, mlp_dim=cfg.mlp_dim, layers=cfg.num_layers, units=tuple(cfg.resnet_units),
+            width=cfg.resnet_width, groups=cfg.gn_groups, decoder_channels=tuple(cfg.decoder_channels),
+            lands_num_1x1=lands_num_1x1,
+        )
     return UNet(
         n_classes=cfg.num_classes,
         depth=cfg.depth,

@@ -116,6 +116,14 @@ def checkpoint_config(ck: dict, base: TrainConfig) -> TrainConfig:
     return TrainConfig.from_checkpoint_meta(meta, base=base)
 
 
+def sharded_arch(cfg: TrainConfig, spatial: bool, tp: Axis) -> None:
+    """Refuse a network other than the U-Net on the 'spatial' or 'model'
+    axis, which cut the U-Net's layers only."""
+    if cfg.arch != "unet" and (spatial or tp.size > 1):
+        raise ValueError("the 'spatial' and 'model' axes shard the U-Net only; {} trains on the 'data' axis or one "
+                         "device".format(cfg.arch))
+
+
 def make_scheduler(cfg: TrainConfig):
     """The LR state machine train.py:331-352 builds, or None (constant LR)."""
     if cfg.optim_type != "sgd":
@@ -311,7 +319,8 @@ def fit(
     'data'. Checkpoints, best nets and loss files are one process's: the
     state is gathered over 'model' and process 0 writes it; a resume cuts
     it again. 'spatial' with ``shard_spatial`` and 'model' together raise
-    NotImplementedError, as in the JAX package.
+    NotImplementedError, as in the JAX package. A TransUNet (``cfg.arch``)
+    on either axis raises ValueError.
 
     Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
     num_restarts, train_idx, valid_idx, train_losses, valid_losses,
@@ -338,6 +347,7 @@ def fit(
     if spatial and tp.size > 1:
         raise NotImplementedError("row sharding over 'spatial' does not compose with tensor parallelism over 'model' "
                                   "(the JAX package refuses it too): drop one axis")
+    sharded_arch(cfg, spatial, tp)
     # every process of the mesh agrees on resume, stopping and writing
     world = Axis() if mesh is None else mesh.joint(*mesh.axis_names)
     prev = None
@@ -357,6 +367,7 @@ def fit(
         if cfg.train_valid_split >= 0:
             train_idx, valid_idx = index_list(prev.get("train-idx")), index_list(prev.get("valid-idx"))
             assert train_idx and valid_idx, "checkpoint holds no train/valid split"
+    sharded_arch(cfg, spatial, tp)
     assert cfg.lr_sched_meth in ("cos", "plateau", "none")
     lrs_is_cos = cfg.lr_sched_meth == "cos"
     lrs_plateau = cfg.lr_sched_meth == "plateau"

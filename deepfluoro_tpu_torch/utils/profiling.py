@@ -15,10 +15,13 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
   calling thread (as
   ``torch.autograd._profiler_enabled()`` reports), into memory, and write
   nothing: a span is then also a ``record_function`` range of the same
-  name, and its start and end are ``time.time_ns()``, the clock the
-  profiler's events carry. With no profiler, ``span`` returns a shared
-  null context after one check and ``count`` returns at once. The
-  recording is one per process, as the profiler is.
+  name. While the session runs its start and end are ``time.time_ns()``,
+  the clock the profiler's events carry; when the session ends they
+  become its range's own start and end (``_settle``), so a thread switch
+  or a preemption between the two clocks' reads leaves no gap. With no
+  profiler, ``span`` returns a shared null context after one check and
+  ``count`` returns at once. The recording is one per process, as the
+  profiler is.
 - ``enable_nan_debugging``: ``torch.autograd.set_detect_anomaly``, so the
   backward op that first produces a NaN raises with the forward's trace
   (``train --debug-nans``; the JAX package's ``jax_debug_nans``).
@@ -38,6 +41,9 @@ _spans: list[Span] = []
 _counts: dict[str, int] = {}
 _counts_lock = threading.Lock()
 _open = threading.local()  # .stack: this thread's open spans, innermost last
+_unsettled: list[Span] = []  # spans closed in the running session, on time.time_ns()
+_session = 0  # how many sessions have ended since the first span
+_hooked = False
 
 
 @contextlib.contextmanager
@@ -58,12 +64,66 @@ def profile_trace(log_dir: str | None):
         yield
 
 
+def _hook_session_end() -> None:
+    """Have ``_settle`` see the result of every profiler session that
+    ends from now on: ``torch.autograd.profiler.profile.__exit__``, which
+    ``torch.profiler.profile`` runs, takes the session's events from the
+    module's ``_disable_profiler``. Where torch has no such function the
+    spans keep their own clock reads."""
+    global _hooked
+    from torch.autograd import profiler as autograd_profiler
+
+    with _counts_lock:
+        if _hooked:
+            return
+        _hooked = True
+        disable = getattr(autograd_profiler, "_disable_profiler", None)
+        if disable is None:
+            return
+
+        def _disable_profiler(*args, **kwargs):
+            result = disable(*args, **kwargs)
+            _settle(result)
+            return result
+
+        autograd_profiler._disable_profiler = _disable_profiler
+
+
+def _settle(result) -> None:
+    """Give each span closed in the session that just ended its range's
+    start and end from the session's ``result``: the ranges of a name, in
+    start order, to the spans of that name in start order. A name with as
+    many spans as ranges only: where the profiler left a thread's ranges
+    out, that name's spans keep their clock reads."""
+    global _session
+    with _counts_lock:
+        spans = _unsettled[:]
+        _unsettled.clear()
+        _session += 1
+    events = getattr(result, "events", None)
+    if not spans or events is None:
+        return
+    ranges: dict[str, list] = {}
+    for e in events():
+        if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU:
+            ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    mine: dict[str, list] = {}
+    for s in spans:
+        mine.setdefault(s.name, []).append(s)
+    for name, group in mine.items():
+        theirs = sorted(ranges.get(name, ()))
+        if len(theirs) == len(group):
+            for s, (start, end) in zip(sorted(group, key=lambda s: s.start_ns), theirs):
+                s.start_ns, s.end_ns = start, end
+
+
 class Span:
     """One recorded span: ``name``, ``id`` (the caller's, or None), the
     span that enclosed it on the same thread when it began (``parent``, a
-    ``Span`` or None), and ``start_ns``/``end_ns`` on ``time.time_ns()``."""
+    ``Span`` or None), and ``start_ns``/``end_ns``: its profiler range's
+    once the session has ended, ``time.time_ns()`` reads until then."""
 
-    __slots__ = ("name", "id", "parent", "start_ns", "end_ns", "_range")
+    __slots__ = ("name", "id", "parent", "start_ns", "end_ns", "_range", "_session")
 
     def __init__(self, name: str, id=None, parent: Span | None = None, start_ns: int = 0, end_ns: int = 0):
         self.name, self.id, self.parent, self.start_ns, self.end_ns = name, id, parent, start_ns, end_ns
@@ -78,10 +138,10 @@ class Span:
             stack = _open.stack = []
         self.parent = stack[-1] if stack else None
         stack.append(self)
+        if not _hooked:
+            _hook_session_end()
+        self._session = _session
         self._range = torch.profiler.record_function(self.name)
-        # each clock read comes just before the range's own: the range's
-        # calls release the interpreter lock, and another thread may hold
-        # it for a switch interval before they return
         self.start_ns = time.time_ns()
         self._range.__enter__()
         return self
@@ -91,7 +151,10 @@ class Span:
         self._range.__exit__(*exc)
         self._range = None
         _open.stack.pop()
-        _spans.append(self)
+        with _counts_lock:
+            _spans.append(self)
+            if self._session == _session:
+                _unsettled.append(self)
         return False
 
     def __repr__(self) -> str:
@@ -128,6 +191,7 @@ def reset() -> None:
     with _counts_lock:
         _spans.clear()
         _counts.clear()
+        _unsettled.clear()
 
 
 def enable_nan_debugging(enable: bool = True) -> None:

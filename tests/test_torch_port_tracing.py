@@ -6,14 +6,17 @@ profiler's clock (within 1 ms of its user annotation of the same name;
 the fit compared writes its checkpoints on the calling thread, so that
 no second thread takes the interpreter lock between the two clock
 reads), ``host_syncs`` counts the blocking reads of the device and
-``measured_algo_runs`` the full-res batch forwards. The recorder
-has no JAX counterpart. Sizes: a depth-2, wf-2 net, 32^2 frames padded to
-36 for fit, raw 148^2 frames (2x: 24^2 padded to 28) for the full-res
-path."""
+``measured_algo_runs`` the full-res batch forwards, and a TransUNet
+member's spans nest in ``fullres.forward`` and ``attention_calls``
+counts its blocks' attention calls. The recorder has no JAX counterpart.
+Sizes: a depth-2, wf-2 net, 32^2 frames padded to 36 for fit, raw 148^2
+frames (2x: 24^2 padded to 28) for the full-res path; a TransUNet of two
+blocks at hidden 32 on the same frames padded to 48."""
 
 import json
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -28,6 +31,10 @@ from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer
 from deepfluoro_tpu_torch.utils import profiling
 
 NET = dict(num_classes=7, depth=2, init_feats_exp=2, batch_norm=True, padding=True, no_max_pool=True, num_lands=14)
+TRANSUNET = dict(arch="transunet", num_classes=7, num_lands=14, proj_unet_dim=48, hidden_size=32, num_heads=4,
+                 mlp_dim=64, num_layers=2, resnet_units=(1, 2, 1), resnet_width=8, gn_groups=4,
+                 decoder_channels=(16, 8, 8, 4))
+TRANSUNET_SPANS = ("transunet.encoder", "transunet.transformer", "transunet.decoder")
 FIT_SPANS = {"fit.epoch", "fit.step", "fit.loss_readback", "fit.validation", "fit.checkpoint", "fit.checkpoint_wait"}
 BATCH_PARTS = ("fullres.copy_up", "fullres.forward", "fullres.sync", "fullres.readback")
 CLOCK_NS = 1_000_000  # the recorded span against the profiler's annotation
@@ -56,16 +63,18 @@ def _fit(tmp_path):
                device="cpu", **paths)
 
 
-def _fullres(consumed=None):
+def _fullres(consumed=None, net=None):
     """Five raw frames at batch 2 (the last batch padded) through one
-    member: (the yielded batches, ``times``). ``consumed`` gets the clock
-    at which the consumer held each batch."""
+    member (the U-Net ``NET``, or ``net``'s config): (the yielded batches,
+    ``times``). ``consumed`` gets the clock at which the consumer held
+    each batch."""
     torch.manual_seed(0)
-    members = [build_model(TrainConfig(**NET, proj_unet_dim=28)).eval()]
+    cfg = TrainConfig(**NET, proj_unet_dim=28) if net is None else TrainConfig(**net)
+    members = [build_model(cfg).eval()]
     spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
     times, out = [], []
     for i0, labels, heats in fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5,
-                                             (148, 148), members, 2, 14, times, 2, 28):
+                                             (148, 148), members, 2, 14, times, 2, cfg.proj_unet_dim):
         if consumed is not None:
             consumed[i0] = time.time_ns()
         out.append((i0, labels, heats))
@@ -112,6 +121,11 @@ def fullres_traced():
     return batches, times, consumed, prof, spans, counts
 
 
+@pytest.fixture(scope="module")
+def transunet_traced():
+    return _traced(_fullres, None, TRANSUNET)
+
+
 def _named(spans, name):
     return [s for s in spans if s.name == name]
 
@@ -120,7 +134,8 @@ def test_nothing_is_recorded_without_a_profiler(tmp_path):
     profiling.reset()
     out = _fit(tmp_path)
     batches, times = _fullres()
-    assert len(out["step_seconds"]) == 6 and len(batches) == 3 and len(times) == 5
+    transunet_batches, _ = _fullres(net=TRANSUNET)
+    assert len(out["step_seconds"]) == 6 and len(batches) == 3 and len(times) == 5 and len(transunet_batches) == 3
     assert profiling.recorded() == ([], {})
     assert profiling.span("a", 1) is profiling.span("b")
 
@@ -150,9 +165,11 @@ def _annotations(prof):
             if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU]
 
 
-@pytest.mark.parametrize("which", ["fit", "fullres"])
-def test_every_span_is_an_annotation_on_the_profilers_clock(which, fit_inline_traced, fullres_traced):
-    prof, spans = (fit_inline_traced[1], fit_inline_traced[2]) if which == "fit" else fullres_traced[3:5]
+@pytest.mark.parametrize("which", ["fit", "fullres", "transunet"])
+def test_every_span_is_an_annotation_on_the_profilers_clock(which, fit_inline_traced, fullres_traced,
+                                                           transunet_traced):
+    prof, spans = {"fit": fit_inline_traced[1:3], "fullres": fullres_traced[3:5],
+                   "transunet": transunet_traced[1:3]}[which]
     ann = _annotations(prof)
     assert spans
     for name in {s.name for s in spans}:
@@ -180,6 +197,27 @@ def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(fullres_traced):
     # the warm-up's synchronise, then a synchronise and two readbacks a
     # batch; one forward under measured algorithms a batch
     assert counts == {"host_syncs": 1 + 3 * len(batches), "measured_algo_runs": len(batches)}
+
+
+def test_transunet_spans_nest_in_the_batch_forward_and_count_attention_calls(transunet_traced):
+    """Each batch forward holds the three TransUNet spans, in order; the
+    warm-up forward before the first batch records them with no parent;
+    ``attention_calls`` counts one a block a forward, warm-up included."""
+    (batches, _), _, spans, counts = transunet_traced
+    forwards = _named(spans, "fullres.forward")
+    assert len(forwards) == len(batches) == 3
+    first_batch = min(s.start_ns for s in _named(spans, "fullres.batch"))
+    mine = sorted((s for s in spans if s.name in TRANSUNET_SPANS), key=lambda s: s.start_ns)
+    assert [s.name for s in mine] == list(TRANSUNET_SPANS) * (len(forwards) + 1)
+    warmup, inside = mine[:3], mine[3:]
+    assert all(s.parent is None and s.end_ns <= first_batch for s in warmup)
+    for k, forward in enumerate(forwards):
+        part = inside[3 * k : 3 * k + 3]
+        assert all(s.parent is forward and forward.start_ns <= s.start_ns <= s.end_ns <= forward.end_ns
+                   for s in part)
+        assert part[0].end_ns <= part[1].start_ns and part[1].end_ns <= part[2].start_ns
+    assert counts["attention_calls"] == TRANSUNET["num_layers"] * (len(forwards) + 1)
+    assert counts["measured_algo_runs"] == len(forwards)
 
 
 def test_measured_algo_runs_counts_each_batch_forward_only_under_a_profiler(fullres_traced):
@@ -222,6 +260,27 @@ def test_detect_landmarks_records_its_span_and_two_reads():
     assert counts == {"host_syncs": 2}
     for a, b in zip(got, plain):
         np.testing.assert_array_equal(a, b)
+
+
+def test_a_span_takes_its_ranges_own_clock_when_the_session_ends(monkeypatch):
+    """A thread switch or a preemption between a span's clock read and its
+    range's own (a clock 7 ms ahead stands in for it): while the session
+    runs the span holds its reads; when it ends, its range's start and
+    end exactly."""
+    real = time.time_ns
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(time_ns=lambda: real() + 7_000_000))
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(2):
+            with profiling.span("skewed", i):
+                with profiling.span("skewed.inner"):
+                    torch.ones(4).sum()
+        during = [(s.start_ns, s.end_ns) for s in profiling.recorded()[0]]
+    spans, _ = profiling.recorded()
+    profiling.reset()
+    ann = sorted((a, b) for n, a, b in _annotations(prof) if n.startswith("skewed"))
+    assert sorted((s.start_ns, s.end_ns) for s in spans) == ann and len(ann) == 4
+    assert all(abs(a - d) >= 6_000_000 for (a, _), (d, _) in zip(ann, sorted(during)))
 
 
 def test_reset_empties_spans_and_counters():
