@@ -63,9 +63,14 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      two frames per rung (prep within 1e-5, heats within 1e-3, labels
      differing on < 0.1 % of pixels and only at near-ties), frames/s by the
      --times contract and each rung's peak memory less its baseline; no
-     warp launch. (b) ``fit`` at full width at 2x (718 -> 736, batch 5) and
-     1x (1436 -> 1440, batch 2) with bf16 compute, remat and the streamed
-     feed, augmentation on, 2 epochs each: one warp launch per step,
+     warp launch; the batches read back through page-locked memory
+     (``pinned_readbacks`` one a batch) bit-equal to a plain ``.cpu()``
+     of the same device tensors, the first batch's arrays kept unchanged
+     through the rest of the rung, and the caching host allocator's new
+     blocks and hand-outs over the rung. (b) ``fit`` at full width at 2x
+     (718 -> 736, batch 5) and 1x (1436 -> 1440, batch 2) with bf16
+     compute, remat and the streamed feed, augmentation on, 2 epochs
+     each: one warp launch per step,
      steps/s and peak memory less baseline; then at 2x, from the trained
      weights and one batch, augmentation off and cuDNN deterministic: remat
      against no remat in float32 (loss within 1e-6 relative, gradients
@@ -247,6 +252,7 @@ import sys
 import tempfile
 import time
 import types
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1138,13 +1144,21 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
     contract) and the rung's peak memory less its baseline. A label may
     differ only where the CPU's top two mean probabilities are closer than
     twice the largest probability difference (no other pixel can flip),
-    and that difference must stay within 1e-3."""
+    and that difference must stay within 1e-3. The checked batches' arrays,
+    read back through page-locked memory, must equal a plain ``.cpu()`` of
+    the device tensors they came from bit for bit (``pinned_readbacks``
+    one a batch, under a CPU profiler), and the first batch's arrays must
+    be unchanged at the rung's end, after the timed batches have taken and
+    freed the caching host allocator's blocks."""
     from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
     from deepfluoro_tpu_torch.infer import ensemble_forward
+    from deepfluoro_tpu_torch.infer import fullres
     from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.utils import profiling
 
     full_hw = spec["projs"].shape[1:]
     baseline = _peak_start()
+    host0 = torch.cuda.host_memory_stats()
     prep, hw = make_fullres_prep(factor, pad, full_hw)
     nchk = FULLRES_CHECK_FRAMES
     projs, rots = torch.from_numpy(spec["projs"][:nchk]), torch.from_numpy(spec["rots"][:nchk])
@@ -1158,7 +1172,26 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
     def read_batch(i0, i1):
         return spec["projs"][i0:i1], spec["rots"][i0:i1]
 
-    got = list(fullres_batches(read_batch, nchk, full_hw, models, factor, models[0].num_lands, None, batch, pad))
+    # the device tensors each checked batch is read back from: the warm-up
+    # forward's first, then one a batch
+    forwards = []
+
+    def kept_forward(*args):
+        forwards.append(ensemble_forward(*args))
+        return forwards[-1]
+
+    profiling.reset()
+    with mock.patch.object(fullres, "ensemble_forward", kept_forward), \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = list(fullres_batches(read_batch, nchk, full_hw, models, factor, models[0].num_lands, None, batch, pad))
+    pinned = profiling.recorded()[1].get("pinned_readbacks", 0)
+    profiling.reset()
+    plain = [(f[2][: l.shape[0]].cpu().numpy(), f[1][: l.shape[0]].cpu().numpy()) for (_, l, _), f in
+             zip(got, forwards[1:])]
+    bit_equal = len(plain) == len(got) and all(np.array_equal(l, pl) and np.array_equal(h, ph)
+                                               for (_, l, h), (pl, ph) in zip(got, plain))
+    del forwards, plain
+    first, first_copy = got[0][1:], tuple(a.copy() for a in got[0][1:])
     labels_d = np.concatenate([l for _, l, _ in got])
     heats_d = np.concatenate([h for _, _, h in got])
     heat_err = float(np.abs(heats_d - heats_c.numpy()).max())
@@ -1177,13 +1210,25 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
         raise AssertionError("card and CPU full-res inference disagree at " + name)
 
     times = []
+    timed = 0
     for _ in fullres_batches(read_batch, len(spec["projs"]), full_hw, models, factor, models[0].num_lands, times,
                              batch, pad):
-        pass
+        timed += 1
     print("  {} {} rung: {:.2f} frames/s at batch {}, K = {}, over {} raw {}^2 frames (--times contract: copy to "
           "the card, prep, forwards, mean, argmax); peak device memory less its baseline {} bytes".format(
               _card(card), name, len(times) / sum(times), batch, len(models), len(times), full_hw[0],
               _peak_since(baseline)))
+    host1 = torch.cuda.host_memory_stats()
+    kept = all(np.array_equal(a, b) for a, b in zip(first, first_copy))
+    # new blocks (cudaHostAlloc calls) and hand-outs over the rung, and the
+    # bytes the allocator holds at its end; a key this torch lacks is left out
+    host = {k: host1[k] - host0.get(k, 0) for k in ("num_host_alloc", "active_requests.allocated") if k in host1}
+    host.update({k: host1[k] for k in ("allocated_bytes.current",) if k in host1})
+    print("  {} rung readback: pinned_readbacks {} in {} checked batches, bit-equal to a plain .cpu() of the same "
+          "device tensors: {}; the first batch's arrays unchanged after {} more batches: {}; caching host allocator "
+          "over the rung: {}".format(name, pinned, len(got), bit_equal, timed, kept, host))
+    if pinned != len(got) or not bit_equal or not kept:
+        raise AssertionError("the pinned full-res readback at {} did not hold its batches".format(name))
 
 
 def _ladder_fit(seed, workdir, rung, frame, pad, batch, n_frames, card):

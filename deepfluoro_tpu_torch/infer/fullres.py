@@ -130,7 +130,10 @@ def fullres_batches(
     before the timing starts. With ``times`` each real frame gets its
     batch's wall-clock over the real frames: the copy to the device, prep,
     K forwards, mean and argmax, up to a synchronise; the readback falls
-    outside. Raises ValueError at once when the nets' ``pad_img_dim`` is
+    outside. Each batch's arrays are its own: they stay valid and unchanged
+    however long the consumer keeps them. On a CUDA device they are in
+    page-locked host memory, copied there from the device with one wait a
+    batch. Raises ValueError at once when the nets' ``pad_img_dim`` is
     below the frame size at ``ds_factor`` (nets of another rung). Every
     forward runs inside ``measured_algorithms``, and never across a
     yield: the consumer runs under the caller's cuDNN flags.
@@ -246,9 +249,20 @@ def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def readback(x):
+    def readback(*xs):
+        # on a card the copies land in page-locked blocks of torch's caching
+        # host allocator (the DMA engine writes the arrays the consumer gets,
+        # where a pageable copy is staged through a CUDA bounce buffer);
+        # a block is reused only once its array is freed, so each batch's
+        # arrays are its own however long they are kept
         count("host_syncs")
-        return x.cpu().numpy()
+        if dev.type != "cuda":
+            return [None if x is None else x.cpu().numpy() for x in xs]
+        hosts = [None if x is None else torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
+                 for x in xs]
+        torch.cuda.current_stream(dev).synchronize()
+        count("pinned_readbacks")
+        return [None if h is None else h.numpy() for h in hosts]
 
     with measured_algorithms():
         run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
@@ -277,8 +291,7 @@ def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
                 times.extend([elapsed / real_b] * real_b)
             if writer:
                 with span("fullres.readback", i0):
-                    labels = readback(labels[:real_b])
-                    heats = None if heats is None else readback(heats[:real_b])
+                    labels, heats = readback(labels[:real_b], None if heats is None else heats[:real_b])
             else:
                 labels = heats = None
         yield i0, labels, heats

@@ -10,7 +10,9 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
   (``fit.*`` in ``train/loop.py``, ``fullres.*`` in ``infer/fullres.py``,
   ``landmarks.detect``) and counters (``host_syncs``, each blocking read
   of the device on those paths; ``measured_algo_runs``, each full-res
-  batch forward run under ``infer/fullres.py::measured_algorithms``).
+  batch forward run under ``infer/fullres.py::measured_algorithms``;
+  ``pinned_readbacks``, each full-res batch read back from a card
+  through page-locked host memory).
   They record only while a ``torch.profiler`` session is active on the
   calling thread (as
   ``torch.autograd._profiler_enabled()`` reports), into memory, and write

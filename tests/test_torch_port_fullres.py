@@ -12,6 +12,7 @@ two mean probabilities differ by more than 1e-4. The cuDNN flags that
 are read by hooks; they have no JAX counterpart."""
 
 import contextlib
+import gc
 
 import h5py
 import jax.numpy as jnp
@@ -157,6 +158,45 @@ def test_fullres_batches_pad_the_final_batch_and_time_real_frames(nets):
                                         hw, 14)
     np.testing.assert_array_equal(np.concatenate([l for _, l, _ in batches]), labels.numpy())
     np.testing.assert_allclose(np.concatenate([h for _, _, h in batches]), heats.numpy(), atol=1e-6)
+
+
+def _memory_holder(a):
+    """The array or tensor whose memory ``a`` views (``a`` itself if it
+    owns its data): ``a`` keeps it alive."""
+    while isinstance(a, np.ndarray) and not a.flags.owndata:
+        a = a.base
+    return a
+
+
+def test_fullres_batches_yield_arrays_the_consumer_owns(nets):
+    """Batch 0's arrays, kept while three more batches of other frames are
+    read back and dropped, still equal one ensemble pass over their frames
+    and their own values when yielded; every yielded array is C-contiguous,
+    of its dtype, shares memory with no other batch's, and keeps alive the
+    memory it views."""
+    models = [load_net_from_checkpoint(p, device="cpu", verbose=False)[0] for p in nets[2]]
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=8, img_dim=148, seed=11)[0]
+    gen = tfull.fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 8, (148, 148), models,
+                                2, 14, None, 2, 36)
+    i0, labels0, heats0 = next(gen)
+    as_yielded = labels0.copy(), heats0.copy()
+    later = list(gen)
+    del gen
+    gc.collect()
+    assert i0 == 0 and [s for s, _, _ in later] == [2, 4, 6]
+    prep, hw = make_fullres_prep(2, 36, (148, 148))
+    _, heats, labels = ensemble_forward(models, prep(torch.from_numpy(spec["projs"][:2]),
+                                                     torch.from_numpy(spec["rots"][:2])), hw, 14)
+    np.testing.assert_array_equal(labels0, as_yielded[0])
+    np.testing.assert_array_equal(heats0, as_yielded[1])
+    np.testing.assert_array_equal(labels0, labels.numpy())
+    np.testing.assert_allclose(heats0, heats.numpy(), atol=1e-6)
+    yielded = [a for _, l, h in [(i0, labels0, heats0), *later] for a in (l, h)]
+    for a, dtype in zip(yielded, [np.uint8, np.float32] * 4):
+        assert a.dtype == dtype and a.flags.c_contiguous
+        assert isinstance(_memory_holder(a), (np.ndarray, torch.Tensor))
+    for j, a in enumerate(yielded):
+        assert not any(np.shares_memory(a, b) for b in yielded[j + 1 :])
 
 
 def cudnn_flags() -> dict:

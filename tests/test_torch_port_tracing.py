@@ -194,9 +194,11 @@ def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(fullres_traced):
         timed = sum(s.ms for s in parts if s.name != "fullres.readback")
         want = 1e3 * times[i0] * real[i0]
         assert abs(timed - want) <= max(0.1 * want, 1.0), (i0, timed, want)
-    # the warm-up's synchronise, then a synchronise and two readbacks a
-    # batch; one forward under measured algorithms a batch
-    assert counts == {"host_syncs": 1 + 3 * len(batches), "measured_algo_runs": len(batches)}
+    # the warm-up's synchronise, then a synchronise and one readback wait a
+    # batch (labels and heats together); one forward under measured
+    # algorithms a batch; no pinned readback on the CPU
+    assert counts == {"host_syncs": 1 + 2 * len(batches), "measured_algo_runs": len(batches)}
+    assert "pinned_readbacks" not in counts
 
 
 def test_transunet_spans_nest_in_the_batch_forward_and_count_attention_calls(transunet_traced):
