@@ -283,7 +283,7 @@ HOST_CALLS = 200  # calls timed on the host clock for the dispatch time
 ENSEMBLE_K = 6
 INFER_FRAME = 180
 INFER_FRAME_ODD = 179
-CHECK_FRAMES = 6  # 180^2 frames held card against CPU (batches of 4 and 2)
+CHECK_FRAMES = 6  # 180^2 frames held card against CPU (batches of 4, the second padded from 2)
 CHECK_FRAMES_ODD = 3
 LATENCY_FRAMES = 32  # timed at batch 1, the reference's granularity
 THROUGHPUT_BATCH = 64
@@ -880,7 +880,7 @@ def phase_inference(seed, workdir, trained_ck, card):
         del bulk_labels, bulk_heats
         fps = len(times) / sum(times)
         print("  [{}] ensemble frames/s at batch {}, K = {}, {}^2 -> {}^2, float32: {:.1f} by the --times contract "
-              "(pad, z-norm, forwards, mean, argmax; {} frames), {:.1f} with the readback of labels and heats; "
+              "(copy up, pad, z-norm, forwards, mean, argmax; {} frames), {:.1f} with the readback of labels and heats; "
               "convolutions at {:.2f} TFLOP/s, the float32 peak's bound {:.1f} frames/s".format(
                   card, THROUGHPUT_BATCH, k, INFER_FRAME, cfg.proj_unet_dim, fps, len(times), wall_fps,
                   fps * k * flops / 1e12, FP32_FLOPS_PER_S / (k * flops)))

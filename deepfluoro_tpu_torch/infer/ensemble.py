@@ -12,13 +12,13 @@ image (per image and landmark for the heats).
 The JAX package unrolls the K forwards into one program instead of
 vmapping over stacked weights (grouped convolutions tile badly,
 ``map_over_nets``); here they are K eager forwards through cuDNN. The
-device work is a generator of host batches (``ensemble_batches``), so it
-runs where h5py is not installed; ``write_ensemble_outputs`` consumes it
-into the file.
+device work is a generator of host batches (``ensemble_batches``, driven
+by ``infer/batches.py::run_batches``), so it runs where h5py is not
+installed; ``write_ensemble_outputs`` consumes it into the file.
 
 ``quantized`` runs the members' int8 forwards instead
 (``infer/quantized.py``), with activation scales calibrated on the first
-``calib_batches`` prepared batches of the same unshuffled iterator, and
+``calib_batches`` prepared batches of the frames in order, and
 the finest ``int8_float_levels`` U-Net levels left in float.
 
 With a mesh (``parallel/mesh.py``) of an 'ensemble' axis of E processes
@@ -35,14 +35,14 @@ load_checkpoint``), with no JAX installed.
 
 from __future__ import annotations
 
-import time
-
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator
+from deepfluoro_tpu_torch.infer.batches import measured_algorithms, run_batches
 from deepfluoro_tpu_torch.native.chunkzip import write_dataset_direct
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
@@ -180,29 +180,25 @@ def _device_of(models) -> torch.device:
     return next(models[0].parameters()).device
 
 
-def _calibration_inputs(it, prep, calib_batches: int):
-    """The first ``calib_batches`` prepared batches of ``it``'s unshuffled
-    epoch (JAX: the same iterator as the inference pass)."""
+def _calibration_inputs(data: FluoroData, batch_size: int, dev, prep, calib_batches: int):
+    """The first ``calib_batches`` prepared batches of ``data`` in order
+    (JAX: the same iterator as the inference pass)."""
     if calib_batches < 1:
         raise ValueError("--int8 needs at least one calibration batch (got --int8-calib-batches {})".format(calib_batches))
-    calib = []
-    for projs, _, _ in it.epoch():
-        calib.append(prep(projs))
-        if len(calib) >= calib_batches:
-            break
-    if not calib:
+    if not len(data):
         raise ValueError("cannot calibrate int8 activation scales on an empty dataset")
-    return calib
+    return [prep(torch.from_numpy(data.projs[i0 : i0 + batch_size]).to(dev))
+            for i0 in range(0, min(len(data), calib_batches * batch_size), batch_size)]
 
 
-def _member_forwards(models, it, prep, quantized: bool, calib_batches: int, int8_float_levels: int):
+def _member_forwards(models, data, batch_size, dev, prep, quantized: bool, calib_batches: int, int8_float_levels: int):
     """The members' forwards: the models themselves, or with ``quantized``
-    their int8 forwards, calibrated here on ``it``'s first batches."""
+    their int8 forwards, calibrated here on ``data``'s first batches."""
     if not quantized:
         return models
     from deepfluoro_tpu_torch.infer.quantized import int8_forwards
 
-    return int8_forwards(models, _calibration_inputs(it, prep, calib_batches), int8_float_levels)
+    return int8_forwards(models, _calibration_inputs(data, batch_size, dev, prep, calib_batches), int8_float_levels)
 
 
 def ensemble_batches(
@@ -218,30 +214,28 @@ def ensemble_batches(
     int8_float_levels: int = 0,
     mesh=None,
 ):
-    """Yield ``(start, labels (b, H, W) uint8, heats (b, L, H, W) float32 or
-    None)`` numpy batches over ``data`` in order, the final partial batch
-    included, on the members' device.
-
-    With ``times`` each image gets its batch's wall-clock divided by the
-    batch size: pad, z-norm, the K forwards and the mean, up to a
-    synchronise inside the timed region; the readback falls outside. Every
-    batch shape, the final partial one too, runs once before timing, so
-    no first-call cost lands in it. With ``quantized`` the forwards are
-    int8, calibrated before the warm-up on the first ``calib_batches``
-    batches (ValueError for fewer than 1, or for an empty dataset).
+    """A generator of ``(start, labels (b, H, W) uint8, heats (b, L, H, W)
+    float32 or None)`` numpy batches over ``data`` in order, on the
+    members' device; ``times``, the padding of a final partial batch, the
+    readback and the cuDNN flags are ``infer/batches.py::run_batches``'
+    (the timed work here: the copy to the device, pad, z-norm, the K
+    forwards, mean and argmax). With ``quantized`` the forwards are int8,
+    calibrated at once on the first ``calib_batches`` batches (ValueError
+    for fewer than 1, or for an empty dataset).
 
     With ``mesh`` every process calls this in lockstep with its own
     members, the same number on each (``ensemble_forward``); the batch
-    size must divide by the 'data' axis, and a final partial batch is
-    padded to a multiple of it with copies of its last frame. Each
+    size must divide by the 'data' axis, and an archive smaller than the
+    batch runs as one batch padded to a multiple of it with copies of its
+    last frame. Each
     process calibrates its own int8 members on the whole leading batches.
     Process 0 yields the arrays; the others yield (start, None, None)."""
     dev = _device_of(models)
     orig_hw = data.orig_img_shape
     n = len(data)
-    writer, d = True, 1
+    d = 1
     if mesh is not None:
-        writer, d = is_writer(), mesh.axis("data").size
+        d = mesh.axis("data").size
         if sum_over([len(models)])[0] != len(models) * process_count():
             raise ValueError("every process must hold the same number of ensemble members")
         if batch_size % d:
@@ -252,41 +246,25 @@ def ensemble_batches(
     def prep(projs):
         return prepare_batch(aug_cfg, None, projs)["proj"]
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     for model in models:
         model.eval()
-    it = BatchIterator(data, batch_size=batch_size, device=dev)
-    fwds = _member_forwards(models, it, prep, quantized, calib_batches, int8_float_levels)
+    with measured_algorithms():
+        fwds = _member_forwards(models, data, batch_size, dev, prep, quantized, calib_batches, int8_float_levels)
 
-    def run(projs):
+    def read_batch(i0, i1):
+        # a preprocessed archive's frames are turned already
+        return data.projs[i0:i1], np.zeros((i1 - i0,), bool)
+
+    def run(projs, rots):
         b = int(projs.shape[0])
         pad = (-b) % d
         if pad:
             projs = torch.cat([projs, projs[-1:].expand(pad, *projs.shape[1:])])
-        out = ensemble_forward(fwds, prep(projs), orig_hw, num_lands, mesh)
-        return tuple(None if t is None else t[:b] for t in out)
+        _, heats, labels = ensemble_forward(fwds, prep(projs), orig_hw, num_lands, mesh)
+        return labels[:b], None if heats is None else heats[:b]
 
-    for warm_b in {min(batch_size, n), n % batch_size} - {0}:
-        run(it.projs[:warm_b])
-    sync()
-
-    start = 0
-    for projs, _, _ in it.epoch():
-        b = int(projs.shape[0])
-        t0 = time.perf_counter()
-        _, avg_heats, labels = run(projs)
-        sync()
-        elapsed = time.perf_counter() - t0
-        if times is not None:
-            times.extend([elapsed / b] * b)
-        if writer:
-            yield start, labels.cpu().numpy(), None if avg_heats is None else avg_heats.cpu().numpy()
-        else:
-            yield start, None, None
-        start += b
+    return run_batches(read_batch, n, tuple(data.projs.shape[1:]), run, dev, times, min(batch_size, n),
+                       mesh is None or is_writer())
 
 
 def write_ensemble_outputs(h5_f, batches, n: int, orig_hw, num_lands: int) -> None:
@@ -335,10 +313,10 @@ def seg_dataset_ensemble(
     architecture and on one device; ``quantized``, ``mesh`` and the rest
     as ``ensemble_batches``. Under a mesh, process 0 writes the file and
     every other process passes ``h5_f=None``."""
-    batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes, quantized,
-                               calib_batches, int8_float_levels, mesh)
     if (h5_f is None) == (mesh is None or is_writer()):
         raise ValueError("process 0 writes the output file: it passes h5_f, every other process None")
+    batches = ensemble_batches(data, models, num_lands, times, batch_size, pad_img_dim, num_classes, quantized,
+                               calib_batches, int8_float_levels, mesh)
     if h5_f is None:
         for _ in batches:
             pass
@@ -395,11 +373,10 @@ def test_dataset_ensemble(
     aug_cfg = AugmentConfig(num_classes=num_classes, proj_pad_dim=pad_img_dim, prob_of_aug=0.0, include_heat_map=use_lands)
     for model in models:
         model.eval()
-    it = BatchIterator(data, batch_size=batch_size, device=dev)
-    fwds = _member_forwards(models, it, lambda projs: prepare_batch(aug_cfg, None, projs)["proj"],
+    fwds = _member_forwards(models, data, batch_size, dev, lambda projs: prepare_batch(aug_cfg, None, projs)["proj"],
                             quantized, calib_batches, int8_float_levels)
     losses = []
-    for projs, segs, lands in it.epoch():
+    for projs, segs, lands in BatchIterator(data, batch_size=batch_size, device=dev).epoch():
         prepared = prepare_batch(aug_cfg, None, projs, segs, lands)
         avg_seg, avg_heats = _member_mean(fwds, prepared["proj"], orig_hw, num_lands, _crop_output)
         if use_lands:

@@ -20,18 +20,11 @@ of the same factor. ``quantized`` runs the members' int8 forwards
 (``infer/quantized.py``), calibrated on the first batch of frames run
 through the same prep. A mesh of 'data' and 'spatial' processes
 (``fullres_batches(mesh=...)``, float or int8) splits each batch's frames
-over 'data' and their rows over 'spatial'.
-
-Every forward of ``fullres_batches`` (its warm-up, each batch, the int8
-calibration) runs inside ``measured_algorithms``: cuDNN times the
-candidate algorithms of each convolution shape once and keeps the
-fastest, in plan-cache entries of the full-res path's own.
+over 'data' and their rows over 'spatial'. The batches run through
+``infer/batches.py::run_batches``.
 """
 
 from __future__ import annotations
-
-import contextlib
-import time
 
 import numpy as np
 import torch
@@ -39,42 +32,11 @@ import torch
 import torch.distributed as dist
 
 from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, fullres_shard, make_fullres_prep
+from deepfluoro_tpu_torch.infer.batches import measured_algorithms, run_batches
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
 from deepfluoro_tpu_torch.models.unet import UNet
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
 from deepfluoro_tpu_torch.parallel.sharding import gather_bands
-from deepfluoro_tpu_torch.utils.profiling import count, span
-
-# candidates cuDNN times per convolution shape under measured_algorithms (in
-# the order of its heuristics; torch's default is 10): at the 2x rung on an
-# H100 the first forward then takes 2.8 s instead of 5.0-5.4 s, and the
-# forward 49.5 ms instead of 49.1-49.4 ms
-MEASURED_CANDIDATES = 5
-
-
-@contextlib.contextmanager
-def measured_algorithms():
-    """A scope in which cuDNN picks each convolution's algorithm by timing
-    its candidates (``torch.backends.cudnn.benchmark``), once per shape,
-    at most ``MEASURED_CANDIDATES`` of them; the caller's ``benchmark``,
-    ``deterministic`` and ``benchmark_limit`` come back on exit, also on
-    an exception. TF32 and ``enabled`` stay as the caller set them."""
-    cudnn = torch.backends.cudnn
-    saved = cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit
-    # deterministic is set for the plan cache's key, not for
-    # reproducibility: torch keys its cached cuDNN plans by shape, strides,
-    # dtype, layout, deterministic and TF32, not by benchmark, so without it
-    # a plan the heuristic chose for an earlier forward at the same shape
-    # (a BatchNorm calibration, say) would be reused here. It costs the
-    # transposed convolutions their fastest, non-deterministic algorithms:
-    # 6.7 against 2.9 ms of a 49-50 ms forward at the 2x rung on an H100.
-    # Measurement may pick other algorithms in another process.
-    cudnn.benchmark = cudnn.deterministic = True
-    cudnn.benchmark_limit = MEASURED_CANDIDATES
-    try:
-        yield
-    finally:
-        cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit = saved
 
 
 def list_fullres_frames(src, specimens=None):
@@ -125,18 +87,12 @@ def fullres_batches(
     in order, on the members' device.
 
     ``read_batch(i0, i1) -> (projs (i1 - i0, H, W) float32, rot_flags
-    (i1 - i0,) bool)`` numpy arrays gives the frames. A final partial batch
-    is padded with its last frame, so every batch has one shape, run once
-    before the timing starts. With ``times`` each real frame gets its
-    batch's wall-clock over the real frames: the copy to the device, prep,
-    K forwards, mean and argmax, up to a synchronise; the readback falls
-    outside. Each batch's arrays are its own: they stay valid and unchanged
-    however long the consumer keeps them. On a CUDA device they are in
-    page-locked host memory, copied there from the device with one wait a
-    batch. Raises ValueError at once when the nets' ``pad_img_dim`` is
-    below the frame size at ``ds_factor`` (nets of another rung). Every
-    forward runs inside ``measured_algorithms``, and never across a
-    yield: the consumer runs under the caller's cuDNN flags.
+    (i1 - i0,) bool)`` numpy arrays gives the frames; ``times``, the
+    padding of a final partial batch, the readback and the cuDNN flags are
+    ``infer/batches.py::run_batches``' (the timed work here: the copy to
+    the device, prep, K forwards, mean and argmax). Raises ValueError at
+    once when the nets' ``pad_img_dim`` is below the frame size at
+    ``ds_factor`` (nets of another rung).
 
     With ``quantized`` the forwards are int8 (the finest
     ``int8_float_levels`` levels in float), with activation scales
@@ -187,13 +143,13 @@ def fullres_batches(
         for model in models:
             shard, _ = fullres_shard(model, mesh, ds_factor, pad_img_dim, full_hw)
         run = _sharded_run(fwds, prep, orig_hw, num_lands, mesh, shard)
-        return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size, is_writer())
+        return run_batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size, is_writer())
 
     def run(projs, rots):
         _, heats, labels = ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
         return labels, heats
 
-    return _batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size)
+    return run_batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size)
 
 
 def _band_member_mean(models, x, shard, orig_hw, num_lands: int):
@@ -237,64 +193,6 @@ def _sharded_run(models, prep, orig_hw, num_lands, mesh, shard):
         return labels, None if heats is None else gather_bands(heats, shard, local, b, orig_hw)
 
     return run
-
-
-@torch.no_grad()
-def _batches(read_batch, n, full_hw, run, dev, times, batch_size, writer=True):
-    """Drive ``run(projs, rots) -> (labels, heats)`` over the frames (the
-    generator ``fullres_batches`` returns)."""
-
-    def sync():
-        count("host_syncs")
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def readback(*xs):
-        # on a card the copies land in page-locked blocks of torch's caching
-        # host allocator (the DMA engine writes the arrays the consumer gets,
-        # where a pageable copy is staged through a CUDA bounce buffer);
-        # a block is reused only once its array is freed, so each batch's
-        # arrays are its own however long they are kept
-        count("host_syncs")
-        if dev.type != "cuda":
-            return [None if x is None else x.cpu().numpy() for x in xs]
-        hosts = [None if x is None else torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
-                 for x in xs]
-        torch.cuda.current_stream(dev).synchronize()
-        count("pinned_readbacks")
-        return [None if h is None else h.numpy() for h in hosts]
-
-    with measured_algorithms():
-        run(torch.ones((batch_size, *full_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
-    sync()
-
-    for i0 in range(0, n, batch_size):
-        # no span stays open across the yield, where the consumer runs
-        with span("fullres.batch", i0):
-            i1 = min(i0 + batch_size, n)
-            real_b = i1 - i0
-            projs, rots = read_batch(i0, i1)
-            if real_b < batch_size:
-                pad = batch_size - real_b
-                projs = np.concatenate([projs, np.repeat(projs[-1:], pad, axis=0)])
-                rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
-            t0 = time.perf_counter()
-            with span("fullres.copy_up", i0):
-                projs, rots = torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev)
-            with span("fullres.forward", i0), measured_algorithms():
-                labels, heats = run(projs, rots)
-                count("measured_algo_runs")
-            with span("fullres.sync", i0):
-                sync()
-            elapsed = time.perf_counter() - t0
-            if times is not None:
-                times.extend([elapsed / real_b] * real_b)
-            if writer:
-                with span("fullres.readback", i0):
-                    labels, heats = readback(labels[:real_b], None if heats is None else heats[:real_b])
-            else:
-                labels = heats = None
-        yield i0, labels, heats
 
 
 def seg_fullres_dataset(

@@ -7,11 +7,10 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
   and ``seg_fullres`` CLIs). The program's spans appear in that trace
   under their names.
 - ``span``, ``count``, ``recorded``, ``reset``: the program's spans
-  (``fit.*`` in ``train/loop.py``, ``fullres.*`` in ``infer/fullres.py``,
-  ``landmarks.detect``) and counters (``host_syncs``, each blocking read
-  of the device on those paths; ``measured_algo_runs``, each full-res
-  batch forward run under ``infer/fullres.py::measured_algorithms``;
-  ``pinned_readbacks``, each full-res batch read back from a card
+  (``fit.*`` in ``train/loop.py``, ``fullres.*`` in ``infer/batches.py``,
+  the batch driver of both inference front ends, ``landmarks.detect``)
+  and counters (``host_syncs``, each blocking read of the device on those
+  paths; ``pinned_readbacks``, each inference batch read back from a card
   through page-locked host memory).
   They record only while a ``torch.profiler`` session is active on the
   calling thread (as

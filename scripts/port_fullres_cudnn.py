@@ -4,7 +4,7 @@ card, in three modes: ``heuristic`` (``torch.backends.cudnn.benchmark``
 off: cuDNN's heuristics), ``benchmark`` (on: each convolution shape timed
 once, then the fastest algorithm kept) and ``program`` (a heuristic
 forward at the batch's shape first, as a BatchNorm calibration before
-full-res inference makes one, then the forward inside ``infer/fullres.py::
+full-res inference makes one, then the forward inside ``infer/batches.py::
 measured_algorithms``, the scope ``fullres_batches`` runs its forwards in).
 
     python3 scripts/port_fullres_cudnn.py [--rung 2x|1x] [--seed N]
@@ -39,7 +39,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data  # noqa: E402
 from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep  # noqa: E402
-from deepfluoro_tpu_torch.infer.fullres import fullres_batches, measured_algorithms  # noqa: E402
+from deepfluoro_tpu_torch.infer.batches import measured_algorithms  # noqa: E402
+from deepfluoro_tpu_torch.infer.fullres import fullres_batches  # noqa: E402
 
 RUNGS = {name: (factor, pad, batch) for name, factor, pad, _, batch in cs.FULLRES_RUNGS}
 

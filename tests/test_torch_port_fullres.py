@@ -8,8 +8,9 @@ Raw 148^2 frames come from the full-res fixture (crop 48^2, 2x -> 24^2
 padded to 36^2). Tolerances: heats within 1e-4 (float32 on both sides,
 convolutions summed in another order); labels equal wherever JAX's top
 two mean probabilities differ by more than 1e-4. The cuDNN flags that
-``fullres_batches`` sets around its forwards (``measured_algorithms``)
-are read by hooks; they have no JAX counterpart."""
+the batch driver of ``fullres_batches`` and ``ensemble_batches`` sets
+around their forwards (``infer/batches.py::measured_algorithms``) are
+read by hooks; they have no JAX counterpart."""
 
 import contextlib
 import gc
@@ -28,9 +29,12 @@ from deepfluoro_tpu.infer.ensemble import load_net_from_checkpoint as jax_load_n
 from deepfluoro_tpu.infer.ensemble import make_ensemble_forward, stack_variables
 from deepfluoro_tpu.train.config import TrainConfig as JaxTrainConfig
 from deepfluoro_tpu_torch.cli import seg_fullres as port_cli
-from deepfluoro_tpu_torch.data.fixtures import make_synthetic_fullres_data, write_synthetic_fullres_dataset
+from deepfluoro_tpu_torch.data.fixtures import (
+    make_synthetic_data, make_synthetic_fullres_data, write_synthetic_fullres_dataset,
+)
 from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep, make_fused_fullres_infer
-from deepfluoro_tpu_torch.infer import ensemble_forward, load_net_from_checkpoint
+from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward, load_net_from_checkpoint
+from deepfluoro_tpu_torch.infer.batches import MEASURED_CANDIDATES
 from deepfluoro_tpu_torch.infer import fullres as tfull
 from deepfluoro_tpu_torch.ops.image import center_crop
 from test_torch_port_infer import _export, _jax_members
@@ -217,20 +221,32 @@ def as_caller(flags):
 
 
 def inside_scope(caller) -> dict:
-    """The flags a forward of ``fullres_batches`` runs under."""
-    return dict(caller, benchmark=True, deterministic=True, benchmark_limit=tfull.MEASURED_CANDIDATES)
+    """The flags a forward of the batch driver runs under."""
+    return dict(caller, benchmark=True, deterministic=True, benchmark_limit=MEASURED_CANDIDATES)
 
 
+def _front_batches(front, model):
+    """Five frames at batch 2 through ``model`` (padded to 36): raw 148^2
+    frames (``fullres_batches`` at 2x) or a preprocessed archive of 32^2
+    frames (``ensemble_batches``)."""
+    if front == "ensemble":
+        return ensemble_batches(make_synthetic_data(num_specimens=1, num_projs=5, img_dim=32, seed=7), [model], 14,
+                                None, 2, 36)
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
+    return tfull.fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5, (148, 148), [model],
+                                 2, 14, None, 2, 36)
+
+
+@pytest.mark.parametrize("front", ["fullres", "ensemble"])
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 @pytest.mark.parametrize("consumer", ["reads_every_batch", "closes_early", "run_raises"])
-def test_fullres_forwards_measure_algorithms_and_the_caller_keeps_its_flags(nets, caller, consumer):
-    """The warm-up and every batch's member calls run with cuDNN's
-    benchmark and deterministic on, ``MEASURED_CANDIDATES`` candidates
-    timed, and the caller's TF32 and ``enabled``; the caller's flags are
-    back while the consumer holds a batch, after an early ``close()``, and
-    after an exception inside the forward."""
+def test_fullres_forwards_measure_algorithms_and_the_caller_keeps_its_flags(nets, front, caller, consumer):
+    """The warm-up and every batch's member calls of either front end run
+    with cuDNN's benchmark and deterministic on, ``MEASURED_CANDIDATES``
+    candidates timed, and the caller's TF32 and ``enabled``; the caller's
+    flags are back while the consumer holds a batch, after an early
+    ``close()``, and after an exception inside the forward."""
     model = load_net_from_checkpoint(nets[2][0], device="cpu", verbose=False)[0]
-    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
     seen = []
 
     def record(module, args, out):
@@ -240,8 +256,7 @@ def test_fullres_forwards_measure_algorithms_and_the_caller_keeps_its_flags(nets
 
     model.register_forward_hook(record)
     with as_caller(CALLERS[caller]):
-        gen = tfull.fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5, (148, 148),
-                                    [model], 2, 14, None, 2, 36)
+        gen = _front_batches(front, model)
         if consumer == "run_raises":
             with pytest.raises(RuntimeError, match="forward failed"):
                 next(gen)

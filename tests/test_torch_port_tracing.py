@@ -5,13 +5,15 @@ under one, every span is recorded with its id and parent, on the
 profiler's clock (within 1 ms of its user annotation of the same name;
 the fit compared writes its checkpoints on the calling thread, so that
 no second thread takes the interpreter lock between the two clock
-reads), ``host_syncs`` counts the blocking reads of the device and
-``measured_algo_runs`` the full-res batch forwards, and a TransUNet
-member's spans nest in ``fullres.forward`` and ``attention_calls``
-counts its blocks' attention calls. The recorder has no JAX counterpart.
-Sizes: a depth-2, wf-2 net, 32^2 frames padded to 36 for fit, raw 148^2
-frames (2x: 24^2 padded to 28) for the full-res path; a TransUNet of two
-blocks at hidden 32 on the same frames padded to 48."""
+reads), ``host_syncs`` counts the blocking reads of the device, the
+batch driver's spans are those of both its front ends
+(``fullres_batches``, ``ensemble_batches``), and a TransUNet member's
+spans nest in ``fullres.forward`` and ``attention_calls`` counts its
+blocks' attention calls. The recorder has no JAX counterpart. Sizes: a
+depth-2, wf-2 net, 32^2 frames padded to 36 for fit and for the
+preprocessed archive, raw 148^2 frames (2x: 24^2 padded to 28) for the
+full-res path; a TransUNet of two blocks at hidden 32 on the same frames
+padded to 48."""
 
 import json
 import threading
@@ -25,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data, make_synthetic_fullres_data
 from deepfluoro_tpu_torch.eval.landmarks import detect_landmarks
+from deepfluoro_tpu_torch.infer.ensemble import ensemble_batches
 from deepfluoro_tpu_torch.infer.fullres import fullres_batches
 from deepfluoro_tpu_torch.train import TrainConfig, build_model, fit, loop
 from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer
@@ -72,13 +75,28 @@ def _fullres(consumed=None, net=None):
     cfg = TrainConfig(**NET, proj_unet_dim=28) if net is None else TrainConfig(**net)
     members = [build_model(cfg).eval()]
     spec = make_synthetic_fullres_data(num_specimens=1, num_projs=5, img_dim=148, seed=7)[0]
-    times, out = [], []
-    for i0, labels, heats in fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5,
-                                             (148, 148), members, 2, 14, times, 2, cfg.proj_unet_dim):
+    times = []
+    return _consume(fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 5, (148, 148),
+                                    members, 2, 14, times, 2, cfg.proj_unet_dim), consumed), times
+
+
+def _ensemble(consumed=None):
+    """A preprocessed archive of five 32^2 frames at batch 2 (the last
+    batch padded) through the U-Net ``NET`` padded to 36, as ``_fullres``."""
+    torch.manual_seed(0)
+    members = [build_model(TrainConfig(**NET, proj_unet_dim=36)).eval()]
+    data = make_synthetic_data(num_specimens=1, num_projs=5, img_dim=32, seed=7)
+    times = []
+    return _consume(ensemble_batches(data, members, 14, times, 2, 36), consumed), times
+
+
+def _consume(batches, consumed):
+    out = []
+    for i0, labels, heats in batches:
         if consumed is not None:
             consumed[i0] = time.time_ns()
         out.append((i0, labels, heats))
-    return out, times
+    return out
 
 
 def _traced(fn, *args):
@@ -114,11 +132,20 @@ def fit_inline_traced(tmp_path_factory):
         return _traced(_fit, tmp_path_factory.mktemp("fit_inline"))
 
 
+def _front_traced(front):
+    consumed = {}
+    (batches, times), prof, spans, counts = _traced(front, consumed)
+    return batches, times, consumed, prof, spans, counts
+
+
 @pytest.fixture(scope="module")
 def fullres_traced():
-    consumed = {}
-    (batches, times), prof, spans, counts = _traced(_fullres, consumed)
-    return batches, times, consumed, prof, spans, counts
+    return _front_traced(_fullres)
+
+
+@pytest.fixture(scope="module")
+def ensemble_traced():
+    return _front_traced(_ensemble)
 
 
 @pytest.fixture(scope="module")
@@ -180,8 +207,11 @@ def test_every_span_is_an_annotation_on_the_profilers_clock(which, fit_inline_tr
             assert abs(s0 - a0) <= CLOCK_NS and abs(s1 - a1) <= CLOCK_NS, name
 
 
-def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(fullres_traced):
-    batches, times, _, _, spans, counts = fullres_traced
+@pytest.mark.parametrize("front", ["fullres", "ensemble"])
+def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(front, request):
+    """Each batch of either front end of the batch driver holds its four
+    parts, whose times add up to ``times``."""
+    batches, times, _, _, spans, counts = request.getfixturevalue(front + "_traced")
     outer = {s.id: s for s in _named(spans, "fullres.batch")}
     assert sorted(outer) == [0, 2, 4] == [i0 for i0, _, _ in batches]
     real = {0: 2, 2: 2, 4: 1}
@@ -195,9 +225,8 @@ def test_fullres_spans_add_up_to_times_and_nest_in_their_batch(fullres_traced):
         want = 1e3 * times[i0] * real[i0]
         assert abs(timed - want) <= max(0.1 * want, 1.0), (i0, timed, want)
     # the warm-up's synchronise, then a synchronise and one readback wait a
-    # batch (labels and heats together); one forward under measured
-    # algorithms a batch; no pinned readback on the CPU
-    assert counts == {"host_syncs": 1 + 2 * len(batches), "measured_algo_runs": len(batches)}
+    # batch (labels and heats together); no pinned readback on the CPU
+    assert counts == {"host_syncs": 1 + 2 * len(batches)}
     assert "pinned_readbacks" not in counts
 
 
@@ -219,18 +248,6 @@ def test_transunet_spans_nest_in_the_batch_forward_and_count_attention_calls(tra
                    for s in part)
         assert part[0].end_ns <= part[1].start_ns and part[1].end_ns <= part[2].start_ns
     assert counts["attention_calls"] == TRANSUNET["num_layers"] * (len(forwards) + 1)
-    assert counts["measured_algo_runs"] == len(forwards)
-
-
-def test_measured_algo_runs_counts_each_batch_forward_only_under_a_profiler(fullres_traced):
-    """One a batch, as many as the recorded forwards (the warm-up forward
-    runs under the same scope but is no batch); nothing without a
-    profiler."""
-    batches, _, _, _, spans, counts = fullres_traced
-    assert counts["measured_algo_runs"] == len(batches) == len(_named(spans, "fullres.forward")) == 3
-    profiling.reset()
-    _fullres()
-    assert "measured_algo_runs" not in profiling.recorded()[1]
 
 
 def test_a_batch_span_ends_before_its_consumer_holds_the_batch(fullres_traced):
