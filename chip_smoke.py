@@ -216,6 +216,18 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      'spatial': 2}, a step on {'model': 2}, the ensemble forward and a
      fold step on {'ensemble': 2}), warp launches counted per part (0: no
      augmentation on these paths, nor in (a)-(c));
+ 15. CUDA graphs (run after 8): the batch driver's capture of the whole
+     batch forward (``infer/batches.py::run_batches``): phase 5's K = 6
+     members at batch 1 over raw 1536^2 frames at 8x, rot-180 flags
+     alternating, and over 180^2 frames through ``ensemble_batches``,
+     decide for one CUDA graph, whose labels and heats equal an eager
+     run's bit for bit, with ``graph_replays`` one a batch and the median
+     per-frame time of each; phase 8's 2x member at batch 4 and the K = 6
+     members at batch 64 decide eager (each decision's host dispatch and
+     card time printed); a seeded TransUNet R50-ViT-B/16 at batch 1 and
+     4 is never offered for capture, and under a CPU profiler counts one
+     ``attention_calls`` per attention layer and one
+     ``transunet.transformer`` span per batch;
  12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
@@ -224,8 +236,9 @@ Any failed check raises, and the script exits non-zero without the final
 line; a rank that fails makes its phase raise. On success a line ``int8
 summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
 line ``distributed summary: {...}`` phase 10's, a line ``spatial
-summary: {...}`` phase 11's, a line ``tp summary: {...}`` phase 13's and
-a line ``host leftovers summary: {...}`` phase 14's;
+summary: {...}`` phase 11's, a line ``tp summary: {...}`` phase 13's,
+a line ``host leftovers summary: {...}`` phase 14's and a line ``graphs
+summary: {...}`` phase 15's decisions;
 the line before the last is a JSON object describing the kernel (with its
 times at every geometry and its launches on each path: training, resume
 and stream, folds, 2x and 1x ladder training, data-parallel training in
@@ -310,6 +323,13 @@ FULLRES_RUNGS = [("8x", 8, TRAIN_PAD, ENSEMBLE_K, 8), ("2x", 2, 736, 1, 4), ("1x
 # split 12 + 1 give 3 steps of 5 per epoch, 7 frames 3 steps of 2
 LADDER = [("2x", 718, 736, 5, 13), ("1x", 1436, 1440, 2, 7)]
 LADDER_EPOCHS = 2
+
+# the CUDA graph phase: raw frames through the batch driver at batch 1,
+# their rot-180 flags alternating, and the batches whose capture decision
+# must come out eager: (name, factor, padded input, members, batch)
+GRAPH_FRAMES = 8
+GRAPH_EAGER_BATCHES = (4, 64)  # the 2x cells' batch, and ensemble-8x-b64's
+GRAPH_TRANSUNET = {}  # TrainConfig sizes of the seeded TransUNet (default: R50-ViT-B/16)
 
 # the int8 phase: every distinct convolution of the 8x net held bit-equal
 # to its plain version at INT8_CHECK_BATCH frames and timed at the
@@ -1144,10 +1164,12 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
     contract) and the rung's peak memory less its baseline. A label may
     differ only where the CPU's top two mean probabilities are closer than
     twice the largest probability difference (no other pixel can flip),
-    and that difference must stay within 1e-3. The checked batches' arrays,
-    read back through page-locked memory, must equal a plain ``.cpu()`` of
-    the device tensors they came from bit for bit (``pinned_readbacks``
-    one a batch, under a CPU profiler), and the first batch's arrays must
+    and that difference must stay within 1e-3. The checked frames make one
+    batch, whose arrays, read back through page-locked memory, must equal a
+    plain ``.cpu()`` of the device tensors they came from bit for bit
+    (``pinned_readbacks`` one a batch, under a CPU profiler; the tensors of
+    the last forward call, or of the CUDA graph's capture, which the batch
+    driver replays where the host sets the pace), and the batch's arrays must
     be unchanged at the rung's end, after the timed batches have taken and
     freed the caching host allocator's blocks."""
     from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep
@@ -1172,8 +1194,9 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
     def read_batch(i0, i1):
         return spec["projs"][i0:i1], spec["rots"][i0:i1]
 
-    # the device tensors each checked batch is read back from: the warm-up
-    # forward's first, then one a batch
+    # the device tensors the checked batch is read back from: the last
+    # call's, whether it ran for the batch or was captured into the batch
+    # driver's CUDA graph, whose replay rewrote its outputs
     forwards = []
 
     def kept_forward(*args):
@@ -1186,11 +1209,12 @@ def _fullres_rung(name, factor, pad, models, cpu_models, spec, batch, card):
         got = list(fullres_batches(read_batch, nchk, full_hw, models, factor, models[0].num_lands, None, batch, pad))
     pinned = profiling.recorded()[1].get("pinned_readbacks", 0)
     profiling.reset()
-    plain = [(f[2][: l.shape[0]].cpu().numpy(), f[1][: l.shape[0]].cpu().numpy()) for (_, l, _), f in
-             zip(got, forwards[1:])]
-    bit_equal = len(plain) == len(got) and all(np.array_equal(l, pl) and np.array_equal(h, ph)
-                                               for (_, l, h), (pl, ph) in zip(got, plain))
-    del forwards, plain
+    if len(got) != 1:
+        raise AssertionError("{} checked frames at batch {} should make one batch".format(nchk, batch))
+    (_, labels_1, heats_1), f = got[0], forwards[-1]
+    bit_equal = (np.array_equal(labels_1, f[2][: labels_1.shape[0]].cpu().numpy())
+                 and np.array_equal(heats_1, f[1][: heats_1.shape[0]].cpu().numpy()))
+    del forwards, f
     first, first_copy = got[0][1:], tuple(a.copy() for a in got[0][1:])
     labels_d = np.concatenate([l for _, l, _ in got])
     heats_d = np.concatenate([h for _, _, h in got])
@@ -1400,6 +1424,157 @@ def phase_ladder(seed, workdir, member_paths, card):
             _ladder_checks(out, ck_path, data, pad, card)
         del out, data
     return counts
+
+
+@contextlib.contextmanager
+def _graph_decisions(eager=False):
+    """The batch driver's capture decisions in the body, as (host dispatch
+    ms, card ms, CUDA graph or not) each; with ``eager`` every decision
+    says eager."""
+    from deepfluoro_tpu_torch.infer import batches
+
+    made = []
+    pays = batches.graph_pays
+
+    def decide(dispatch_s, device_s):
+        made.append((1e3 * dispatch_s, 1e3 * device_s, not eager and pays(dispatch_s, device_s)))
+        return made[-1][2]
+
+    with mock.patch.object(batches, "graph_pays", decide):
+        yield made
+
+
+def _served(make, eager=False):
+    """Run the generator ``make(times)`` to its end: (its (labels, heats)
+    batches, the capture decisions, the counters and the spans recorded
+    over every batch after the first, the --times list). The first batch,
+    and the warm-up and decision before it, run outside the CPU profiler
+    that records the rest, so the profiler's cost is not in the host
+    dispatch the decision measures."""
+    from deepfluoro_tpu_torch.utils import profiling
+
+    times = []
+    with _graph_decisions(eager) as made:
+        gen = make(times)
+        out = [next(gen)[1:]]
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out += [b[1:] for b in gen]
+        spans, counts = profiling.recorded()
+        profiling.reset()
+    return out, made, counts, spans, times
+
+
+def _forward_ms(spans):
+    """The median ``fullres.forward`` span in ms: the host's dispatch of a
+    batch, or its graph's launch."""
+    forward_ms = [s.ms for s in spans if s.name == "fullres.forward"]
+    return float(np.median(forward_ms)) if forward_ms else math.nan
+
+
+def _decision_text(made):
+    return ", ".join("dispatch {:.3f} ms, card {:.3f} ms ({:.3f}): {}".format(
+        d, c, d / c, "CUDA graph" if g else "eager") for d, c, g in made)
+
+
+def phase_graphs(seed, workdir, member_paths, card):
+    """The batch driver's CUDA graph (``infer/batches.py::run_batches``):
+    phase 5's K = 6 members at batch 1 over GRAPH_FRAMES raw FULLRES_DIM^2
+    frames at 8x (rot-180 flags alternating, ``fullres_batches``) and over
+    as many 180^2 frames (``ensemble_batches``) decide for a graph; its
+    labels and heats equal an eager run's bit for bit, ``graph_replays``
+    counts one a batch, and each side's median per-frame time (the --times
+    contract) is printed. Then the capture decision at GRAPH_EAGER_BATCHES
+    of phase 8's 2x member at the first and of the K = 6 members at the
+    second, which must come out eager with no replay; and a seeded
+    TransUNet (R50-ViT-B/16 at 736^2) at batch 1 and at the first, which
+    must make no decision and no replay and keep its attention counter
+    and transformer span one a layer and one a batch. Returns {name: [host
+    dispatch ms, card ms, graph], or None for a forward not offered}."""
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data, make_synthetic_fullres_data
+    from deepfluoro_tpu_torch.infer import ensemble_batches, load_net_from_checkpoint
+    from deepfluoro_tpu_torch.infer.fullres import fullres_batches
+    from deepfluoro_tpu_torch.models.transunet import Attention
+    from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
+
+    spec = make_synthetic_fullres_data(num_specimens=1, num_projs=GRAPH_FRAMES, img_dim=FULLRES_DIM, seed=seed + 6)[0]
+    spec["rots"][:] = np.arange(GRAPH_FRAMES) % 2 == 0
+    full_hw = spec["projs"].shape[1:]
+
+    def read_batch(i0, i1):
+        j = np.arange(i0, i1) % GRAPH_FRAMES
+        return spec["projs"][j], spec["rots"][j]
+
+    members = [load_net_from_checkpoint(p, device=DEVICE, verbose=False)[0] for p in member_paths[:ENSEMBLE_K]]
+    lands = members[0].num_lands
+    small = make_synthetic_data(num_specimens=1, num_projs=GRAPH_FRAMES, img_dim=INFER_FRAME, seed=seed + 7)
+    fronts = {
+        "8x fullres_batches": lambda times: fullres_batches(read_batch, GRAPH_FRAMES, full_hw, members, 8, lands,
+                                                             times, 1, TRAIN_PAD),
+        "{}^2 ensemble_batches".format(INFER_FRAME): lambda times: ensemble_batches(small, members, lands, times, 1,
+                                                                                    TRAIN_PAD),
+    }
+    decisions = {}
+
+    def held(name, make):
+        graphed, made, counts, spans_g, times_g = _served(make)
+        decisions[name] = list(made[0])
+        if not made[0][2]:
+            print("  {} at batch {}: {}".format(name, len(graphed[0][0]), _decision_text(made)))
+            raise AssertionError("{} decided eager".format(name))
+        eager, _, counts_e, spans_e, times_e = _served(make, eager=True)
+        replays, replays_e = counts.get("graph_replays", 0), counts_e.get("graph_replays", 0)
+        forward_g, forward_e = _forward_ms(spans_g), _forward_ms(spans_e)
+        equal = len(eager) == len(graphed) and all(
+            np.array_equal(a, b) for g, e in zip(graphed, eager) for a, b in zip(g, e))
+        print("  {} {} over {} frames, batch {}: {}; labels and heats equal to the eager run bit for bit: {}; "
+              "graph_replays {} in {} profiled batches (eager: {}); median per-frame time (--times contract) "
+              "{:.3f} ms with the graph, {:.3f} ms eager; median fullres.forward span (CPU profiler) {:.3f} ms with "
+              "the graph, {:.3f} ms eager".format(
+                  _card(card), name, len(times_g), len(graphed[0][0]), _decision_text(made), equal, replays,
+                  len(graphed) - 1, replays_e, 1e3 * float(np.median(times_g)), 1e3 * float(np.median(times_e)),
+                  forward_g, forward_e))
+        if not equal or replays != len(graphed) - 1 or replays_e:
+            raise AssertionError("the CUDA graph of {} does not hold".format(name))
+
+    for name, make in fronts.items():
+        held(name, make)
+    del small
+
+    _, factor_2x, pad_2x, _, _ = FULLRES_RUNGS[1]
+    torch.manual_seed(seed)
+    tu = build_model(TrainConfig(arch="transunet", num_classes=7, num_lands=lands, proj_unet_dim=pad_2x,
+                                 **GRAPH_TRANSUNET)).to(DEVICE).eval()
+    unet_2x = load_net_from_checkpoint(os.path.join(workdir, "fullres_2x.pt"), device=DEVICE, verbose=False)[0]
+    batch_2x, batch_bulk = GRAPH_EAGER_BATCHES
+    for name, models, factor, pad, batch in (("2x U-Net", [unet_2x], factor_2x, pad_2x, batch_2x),
+                                             ("8x K = {}".format(len(members)), members, 8, TRAIN_PAD, batch_bulk)):
+        _, made, counts, _, _ = _served(lambda times: fullres_batches(read_batch, 2 * batch, full_hw, models, factor,
+                                                                   lands, times, batch, pad))
+        replays = counts.get("graph_replays", 0)
+        decisions["{} batch {}".format(name, batch)] = list(made[0])
+        print("  {} {} at batch {}: {}; graph_replays {}".format(_card(card), name, batch, _decision_text(made),
+                                                                 replays))
+        if made[0][2] or replays:
+            raise AssertionError("{} at batch {} decided for a CUDA graph".format(name, batch))
+    # a TransUNet is never offered for capture, at any batch: its spans and
+    # attention counter are recorded on the host, once a forward
+    attentions = sum(isinstance(m, Attention) for m in tu.modules())
+    for batch in (1, batch_2x):
+        out, made, counts, spans, _ = _served(lambda times: fullres_batches(read_batch, 3 * batch, full_hw, [tu],
+                                                                         factor_2x, lands, times, batch, pad_2x))
+        profiled = len(out) - 1
+        transformer = sum(s.name == "transunet.transformer" for s in spans)
+        decisions["2x TransUNet batch {}".format(batch)] = None
+        print("  {} 2x TransUNet at batch {}: capture decisions {}, graph_replays {}, attention_calls {} and "
+              "transunet.transformer spans {} over {} profiled batches of {} attention layers".format(
+                  _card(card), batch, len(made), counts.get("graph_replays", 0), counts.get("attention_calls", 0),
+                  transformer, profiled, attentions))
+        if made or counts.get("graph_replays") or counts.get("attention_calls") != attentions * profiled \
+                or transformer != profiled:
+            raise AssertionError("the TransUNet at batch {} was offered for capture or lost its records".format(batch))
+    del tu, unet_2x, members
+    return decisions
 
 
 def _event_ms(fn, iters=INT8_TIMED_ITERS):
@@ -2975,6 +3150,8 @@ def main(argv=None) -> int:
             ("6 resume and stream", lambda: phase_resume_and_stream(args.seed, workdir, results["1 environment"])),
             ("7 folds", lambda: phase_folds(args.seed, workdir, results["1 environment"], results["3 kernel vs plain"][1])),
             ("8 ladder", lambda: phase_ladder(args.seed, workdir, results["5 inference"][0], results["1 environment"])),
+            ("15 CUDA graphs", lambda: phase_graphs(args.seed, workdir, results["5 inference"][0],
+                                                      results["1 environment"])),
             ("9 int8", lambda: phase_int8(args.seed, results["5 inference"][0], results["1 environment"])),
             ("10 distributed", lambda: phase_distributed(args.seed, workdir, results["5 inference"][0])),
             ("11 JAX checkpoints and spatial", lambda: phase_spatial(
@@ -3018,6 +3195,7 @@ def main(argv=None) -> int:
     print("spatial summary: " + json.dumps(results["11 JAX checkpoints and spatial"][0]))
     print("tp summary: " + json.dumps(results["13 tensor parallel, sharded checkpoints, int8 bands"][0]))
     print("host leftovers summary: " + json.dumps(results["14 host leftovers"][0]))
+    print("graphs summary: " + json.dumps(results["15 CUDA graphs"]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -88,20 +88,32 @@ def linear_taps(m: int, n: int):
     return start.astype(np.int64), w[rows, np.arange(n)[:, None]].astype(np.float32)
 
 
-def _apply_taps(x: torch.Tensor, start: np.ndarray, weights: np.ndarray) -> torch.Tensor:
-    """Resize the last axis of ``x`` by ``linear_taps``' band."""
-    idx = torch.from_numpy(start[:, None] + np.arange(weights.shape[1])[None, :]).to(x.device)
-    return (x[..., idx] * torch.from_numpy(weights).to(x.device)).sum(dim=-1)
+def _device_taps(m: int, n: int, device):
+    """``linear_taps(m, n)`` as (source indices (n, T) int64, weights (n,
+    T) float32) tensors on ``device``."""
+    start, weights = linear_taps(m, n)
+    idx = torch.from_numpy(start[:, None] + np.arange(weights.shape[1])[None, :])
+    return idx.to(device), torch.from_numpy(weights).to(device)
 
 
-def resize_linear(img: torch.Tensor, out_hw) -> torch.Tensor:
+def _apply_taps(x: torch.Tensor, taps) -> torch.Tensor:
+    """Resize the last axis of ``x`` by one of ``_device_taps``' pairs."""
+    idx, weights = taps
+    return (x[..., idx] * weights).sum(dim=-1)
+
+
+def resize_linear(img: torch.Tensor, out_hw, taps=None) -> torch.Tensor:
     """``jax.image.resize(img, out_hw, "linear")`` over the trailing two
-    dims of float32 frames, rows then columns."""
+    dims of float32 frames, rows then columns. ``taps``: the (rows,
+    columns) ``_device_taps`` of this resize on ``img``'s device, for a
+    caller that resizes many batches; without them each call copies its
+    taps from the host."""
     h, w = img.shape[-2:]
     if (h, w) == tuple(out_hw):
         return img
-    x = _apply_taps(img.transpose(-2, -1), *linear_taps(h, out_hw[0])).transpose(-2, -1)
-    return _apply_taps(x, *linear_taps(w, out_hw[1]))
+    rows, cols = taps or (_device_taps(h, out_hw[0], img.device), _device_taps(w, out_hw[1], img.device))
+    x = _apply_taps(img.transpose(-2, -1), rows).transpose(-2, -1)
+    return _apply_taps(x, cols)
 
 
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
@@ -251,6 +263,10 @@ def make_fullres_prep(ds_factor: int, pad_dim: int, full_hw):
     pre-pad size the network outputs are cropped back to."""
     full_hw = tuple(int(v) for v in full_hw)
     hc, wc = fullres_crop_size(ds_factor, full_hw)
+    # device -> the resize's (rows, columns) taps there, made at its first
+    # call and held as long as ``prep``: a CUDA graph captured over ``prep``
+    # reads them by address, and copies nothing from the host
+    taps = {}
 
     def prep(projs: torch.Tensor, rot_flags: torch.Tensor) -> torch.Tensor:
         if tuple(projs.shape[-2:]) != full_hw:
@@ -258,7 +274,9 @@ def make_fullres_prep(ds_factor: int, pad_dim: int, full_hw):
         x = beer_lambert_log(_crop_borders(projs.to(torch.float32)))
         rot = rot_flags.to(device=x.device, dtype=torch.bool)[:, None, None]
         x = torch.where(rot, x.flip(-2, -1), x)
-        x = reflect_pad_to(resize_linear(x, (hc, wc)), pad_dim)
+        if x.device not in taps:
+            taps[x.device] = (_device_taps(x.shape[-2], hc, x.device), _device_taps(x.shape[-1], wc, x.device))
+        x = reflect_pad_to(resize_linear(x, (hc, wc), taps[x.device]), pad_dim)
         return znorm(x, dim=(-2, -1))[:, None]
 
     return prep, (hc, wc)

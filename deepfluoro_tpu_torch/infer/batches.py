@@ -2,18 +2,22 @@
 front ends return: ``infer/fullres.py::fullres_batches`` (raw full-res
 frames) and ``infer/ensemble.py::ensemble_batches`` (a preprocessed
 archive). The cuDNN policy, the padding rule, the spans (their
-``fullres.*`` names are the ones the benchmark's readers hold) and the
-readback are decided here, once (no JAX counterpart).
+``fullres.*`` names are the ones the benchmark's readers hold), the
+readback and the choice between eager forwards and one CUDA graph are
+decided here, once (no JAX counterpart).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import math
 import time
 
 import numpy as np
 import torch
 
+from deepfluoro_tpu_torch.models.unet import UNet
 from deepfluoro_tpu_torch.utils.profiling import count, span
 
 # candidates cuDNN times per convolution shape under measured_algorithms (in
@@ -21,6 +25,21 @@ from deepfluoro_tpu_torch.utils.profiling import count, span
 # H100 the first forward then takes 2.8 s instead of 5.0-5.4 s, and the
 # forward 49.5 ms instead of 49.1-49.4 ms
 MEASURED_CANDIDATES = 5
+
+# the host's dispatch of a forward, as a share of the card's time for it,
+# at or above which the card waits for the host and the forward is
+# replayed as one CUDA graph. Where the host sets the pace the card's time
+# holds its waits for the launches, and the share reads about 1: 0.996 at
+# batch 1 of the K = 6 ensemble at the 8x rung on an H100; 0.16 at batch 4
+# at the 2x rung and at batch 64 at 8x
+GRAPH_DISPATCH_SHARE = 0.5
+# eager forwards timed for that decision, each side the least of them: a
+# preempted host, or an allocation the first one makes, only lengthens a
+# forward's dispatch (one timed forward of a TransUNet at batch 4 at the
+# 2x rung read 0.49 where another read 0.22)
+TIMED_FORWARDS = 2
+
+_log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
@@ -48,8 +67,57 @@ def measured_algorithms():
         cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit = saved
 
 
+def may_capture(models, mesh=None, quantized: bool = False) -> bool:
+    """Whether a front end's forward over ``models`` may be offered to
+    ``run_batches`` for one CUDA graph: on one device (a mesh's ranks must
+    not decide apart, and gloo's collectives cannot be captured), in float
+    (the int8 forwards stay eager), and with U-Net members only: a
+    TransUNet's forward records its ``transunet.*`` spans and
+    ``attention_calls`` on the host, which a replay would not record."""
+    return mesh is None and not quantized and all(isinstance(m, UNet) for m in models)
+
+
+def graph_pays(dispatch_s: float, device_s: float) -> bool:
+    """Whether a forward whose host dispatch took ``dispatch_s`` and whose
+    run on the card took ``device_s`` is worth replaying as one CUDA
+    graph: where the dispatch is at least ``GRAPH_DISPATCH_SHARE`` of the
+    card's time, the card waits for the host's launches."""
+    return dispatch_s >= GRAPH_DISPATCH_SHARE * device_s
+
+
+def _captured(run, projs, rots):
+    """``(graph, outputs)``: ``run(projs, rots)`` on these device tensors
+    captured as one CUDA graph, whose replays read them and write
+    ``outputs``; or None where ``graph_pays`` says no. ``TIMED_FORWARDS``
+    eager forwards measure both sides: the host's dispatch (the call to
+    its return) and the card's time (CUDA events around it). The decision
+    is logged at INFO. The forwards before it chose and cached every
+    convolution's algorithm, so the capture times no candidate."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    dispatch_s = device_s = math.inf
+    with measured_algorithms():
+        for _ in range(TIMED_FORWARDS):
+            start.record()
+            t0 = time.perf_counter()
+            run(projs, rots)
+            dispatch_s = min(dispatch_s, time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            device_s = min(device_s, start.elapsed_time(end) / 1e3)
+        pays = graph_pays(dispatch_s, device_s)
+        _log.info("batch of %d: host dispatch %.3f ms, card %.3f ms: %s", int(projs.shape[0]), 1e3 * dispatch_s,
+                  1e3 * device_s, "one CUDA graph" if pays else "eager")
+        if not pays:
+            return None
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = run(projs, rots)
+    return graph, outputs
+
+
 @torch.no_grad()
-def run_batches(read_batch, n: int, frame_hw, run, dev, times, batch_size: int, writer: bool = True):
+def run_batches(read_batch, n: int, frame_hw, run, dev, times, batch_size: int, writer: bool = True,
+                graphable: bool = False):
     """A generator of ``(start, labels, heats or None)`` numpy batches of
     ``run(projs, rot_flags) -> (labels, heats or None)`` (tensors on
     ``dev``) over ``n`` frames in order, which ``read_batch(i0, i1) ->
@@ -66,7 +134,17 @@ def run_batches(read_batch, n: int, frame_hw, run, dev, times, batch_size: int, 
     long the consumer keeps them; on a CUDA device they are in page-locked
     host memory, with one wait a batch. With ``writer`` False (a mesh
     process other than 0) it yields (start, None, None); with ``n`` 0,
-    nothing."""
+    nothing.
+
+    Every batch's frames (as float32) and flags are copied into the same
+    two device tensors. With ``graphable`` (the caller's ``run`` makes no
+    host sync, collective or random draw, and records no span or counter:
+    ``may_capture``) on a CUDA device, timed warm-up forwards decide by
+    ``graph_pays`` whether ``run`` is captured as one CUDA graph on those
+    tensors (``_captured``); each batch then replays it (counter
+    ``graph_replays``). Its outputs are read back before the generator
+    yields, so no replay overwrites what the consumer has not received.
+    On the CPU nothing is captured."""
     if not n:
         return
 
@@ -90,9 +168,12 @@ def run_batches(read_batch, n: int, frame_hw, run, dev, times, batch_size: int, 
         count("pinned_readbacks")
         return [None if h is None else h.numpy() for h in hosts]
 
+    projs_d = torch.ones((batch_size, *frame_hw), device=dev)
+    rots_d = torch.zeros((batch_size,), dtype=torch.bool, device=dev)
     with measured_algorithms():
-        run(torch.ones((batch_size, *frame_hw), device=dev), torch.zeros((batch_size,), dtype=torch.bool, device=dev))
+        run(projs_d, rots_d)
     sync()
+    graphed = _captured(run, projs_d, rots_d) if graphable and dev.type == "cuda" else None
 
     for i0 in range(0, n, batch_size):
         # no span stays open across the yield, where the consumer runs
@@ -106,9 +187,16 @@ def run_batches(read_batch, n: int, frame_hw, run, dev, times, batch_size: int, 
                 rots = np.concatenate([rots, np.repeat(rots[-1:], pad)])
             t0 = time.perf_counter()
             with span("fullres.copy_up", i0):
-                projs, rots = torch.from_numpy(projs).to(dev), torch.from_numpy(rots).to(dev)
-            with span("fullres.forward", i0), measured_algorithms():
-                labels, heats = run(projs, rots)
+                projs_d.copy_(torch.from_numpy(projs))
+                rots_d.copy_(torch.from_numpy(rots))
+            with span("fullres.forward", i0):
+                if graphed is None:
+                    with measured_algorithms():
+                        labels, heats = run(projs_d, rots_d)
+                else:
+                    graphed[0].replay()
+                    count("graph_replays")
+                    labels, heats = graphed[1]
             with span("fullres.sync", i0):
                 sync()
             elapsed = time.perf_counter() - t0

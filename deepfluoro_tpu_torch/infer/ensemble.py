@@ -42,7 +42,7 @@ import torch.distributed as dist
 from deepfluoro_tpu_torch.data.augment import AugmentConfig, prepare_batch
 from deepfluoro_tpu_torch.data.hdf5 import FluoroData
 from deepfluoro_tpu_torch.data.pipeline import BatchIterator
-from deepfluoro_tpu_torch.infer.batches import measured_algorithms, run_batches
+from deepfluoro_tpu_torch.infer.batches import may_capture, measured_algorithms, run_batches
 from deepfluoro_tpu_torch.native.chunkzip import write_dataset_direct
 from deepfluoro_tpu_torch.ops.image import center_crop
 from deepfluoro_tpu_torch.ops.losses import per_sample_dice, per_sample_joint
@@ -264,7 +264,7 @@ def ensemble_batches(
         return labels[:b], None if heats is None else heats[:b]
 
     return run_batches(read_batch, n, tuple(data.projs.shape[1:]), run, dev, times, min(batch_size, n),
-                       mesh is None or is_writer())
+                       mesh is None or is_writer(), graphable=may_capture(models, mesh, quantized))
 
 
 def write_ensemble_outputs(h5_f, batches, n: int, orig_hw, num_lands: int) -> None:

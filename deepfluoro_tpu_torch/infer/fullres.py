@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from deepfluoro_tpu_torch.data.preprocess import fullres_crop_size, fullres_shard, make_fullres_prep
-from deepfluoro_tpu_torch.infer.batches import measured_algorithms, run_batches
+from deepfluoro_tpu_torch.infer.batches import may_capture, measured_algorithms, run_batches
 from deepfluoro_tpu_torch.infer.ensemble import ensemble_forward, write_ensemble_outputs
 from deepfluoro_tpu_torch.models.unet import UNet
 from deepfluoro_tpu_torch.parallel.multihost import is_writer
@@ -149,7 +149,8 @@ def fullres_batches(
         _, heats, labels = ensemble_forward(fwds, prep(projs, rots), orig_hw, num_lands)
         return labels, heats
 
-    return run_batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size)
+    return run_batches(read_batch, n, tuple(full_hw), run, dev, times, batch_size,
+                       graphable=may_capture(models, quantized=quantized))
 
 
 def _band_member_mean(models, x, shard, orig_hw, num_lands: int):

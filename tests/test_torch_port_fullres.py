@@ -10,7 +10,8 @@ convolutions summed in another order); labels equal wherever JAX's top
 two mean probabilities differ by more than 1e-4. The cuDNN flags that
 the batch driver of ``fullres_batches`` and ``ensemble_batches`` sets
 around their forwards (``infer/batches.py::measured_algorithms``) are
-read by hooks; they have no JAX counterpart."""
+read by hooks, and so is its choice between eager forwards and one CUDA
+graph (never on the CPU, a mesh or int8); they have no JAX counterpart."""
 
 import contextlib
 import gc
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from deepfluoro_tpu.cli import seg_fullres as jax_cli
 from deepfluoro_tpu.data.preprocess import make_fullres_prep as jax_prep
@@ -35,8 +37,13 @@ from deepfluoro_tpu_torch.data.fixtures import (
 from deepfluoro_tpu_torch.data.preprocess import make_fullres_prep, make_fused_fullres_infer
 from deepfluoro_tpu_torch.infer import ensemble_batches, ensemble_forward, load_net_from_checkpoint
 from deepfluoro_tpu_torch.infer.batches import MEASURED_CANDIDATES
+from deepfluoro_tpu_torch.infer import batches as tbatches
+from deepfluoro_tpu_torch.infer import ensemble as tens
 from deepfluoro_tpu_torch.infer import fullres as tfull
 from deepfluoro_tpu_torch.ops.image import center_crop
+from deepfluoro_tpu_torch.parallel.mesh import make_mesh
+from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
+from deepfluoro_tpu_torch.utils import profiling
 from test_torch_port_infer import _export, _jax_members
 
 ATOL = 1e-4
@@ -269,6 +276,80 @@ def test_fullres_forwards_measure_algorithms_and_the_caller_keeps_its_flags(nets
     # the warm-up and then one call a batch
     assert len(seen) == {"reads_every_batch": 4, "closes_early": 2, "run_raises": 2}[consumer]
     assert all(flags == inside_scope(CALLERS[caller]) for flags in seen)
+
+
+@pytest.mark.parametrize("dispatch_s,device_s,pays", [(0.5, 1.0, True), (0.4999, 1.0, False)],
+                         ids=["on-the-line", "just-below"])
+def test_a_graph_pays_where_dispatch_is_half_the_card_time(dispatch_s, device_s, pays):
+    """The capture decision is a function of the two measured times alone:
+    a CUDA graph where the host's dispatch is at least half the card's time,
+    eager below."""
+    assert tbatches.graph_pays(dispatch_s, device_s) is pays
+
+
+@pytest.mark.parametrize("front", ["fullres", "ensemble"])
+def test_batches_on_the_cpu_never_capture_a_graph(nets, front, monkeypatch):
+    """On the CPU the batch driver captures nothing even where a graph would
+    pay: no second warm-up forward, no ``graph_replays``, and the same
+    arrays as a run whose decision says eager."""
+    model = load_net_from_checkpoint(nets[2][0], device="cpu", verbose=False)[0]
+    calls = []
+    model.register_forward_hook(lambda *_: calls.append(1))
+    eager = list(_front_batches(front, model))
+    monkeypatch.setattr(tbatches, "graph_pays", lambda dispatch_s, device_s: True)
+
+    def no_capture(*args):
+        raise AssertionError("captured a CUDA graph on the CPU")
+
+    monkeypatch.setattr(tbatches, "_captured", no_capture)
+    calls.clear()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        offered = list(_front_batches(front, model))
+    counts = profiling.recorded()[1]
+    profiling.reset()
+    # the warm-up and then one call a batch
+    assert len(calls) == 1 + len(offered) == 4
+    assert counts == {"host_syncs": 1 + 2 * len(offered)}
+    for (i0, labels, heats), (j0, labels_e, heats_e) in zip(offered, eager, strict=True):
+        assert i0 == j0
+        np.testing.assert_array_equal(labels, labels_e)
+        np.testing.assert_array_equal(heats, heats_e)
+
+
+@pytest.mark.parametrize("path", ["float", "mesh", "int8", "transunet"])
+@pytest.mark.parametrize("front", ["fullres", "ensemble"])
+def test_only_single_device_float_unet_forwards_are_offered_for_capture(nets, front, path, monkeypatch):
+    """``fullres_batches`` and ``ensemble_batches`` offer their forward to
+    the batch driver's CUDA graph only on one device, in float, over U-Net
+    members: a mesh's ranks must not decide apart and gloo's collectives
+    cannot be captured, the int8 forwards stay eager, and a TransUNet's
+    forward records spans and ``attention_calls`` that a replay would not."""
+    if path == "transunet":
+        torch.manual_seed(0)
+        model = build_model(TrainConfig(arch="transunet", num_classes=7, num_lands=14, proj_unet_dim=48, hidden_size=32,
+                                        num_heads=4, mlp_dim=64, num_layers=2, resnet_units=(1, 2, 1), resnet_width=8,
+                                        gn_groups=4, decoder_channels=(16, 8, 8, 4))).eval()
+        pad = 48
+    else:
+        model, pad = load_net_from_checkpoint(nets[2][0], device="cpu", verbose=False)[0], 36
+    offered = []
+
+    def driver(*args, graphable=False, **kwargs):
+        offered.append(graphable)
+        return iter(())
+
+    owner = tfull if front == "fullres" else tens
+    monkeypatch.setattr(owner, "run_batches", driver)
+    kw = {"mesh": {"mesh": make_mesh({"data": 1})}, "int8": {"quantized": True}}.get(path, {})
+    if front == "fullres":
+        spec = make_synthetic_fullres_data(num_specimens=1, num_projs=2, img_dim=148, seed=7)[0]
+        tfull.fullres_batches(lambda i0, i1: (spec["projs"][i0:i1], spec["rots"][i0:i1]), 2, (148, 148), [model],
+                              2, 14, None, 2, pad, **kw)
+    else:
+        ensemble_batches(make_synthetic_data(num_specimens=1, num_projs=2, img_dim=32, seed=7), [model], 14, None, 2,
+                         pad, **kw)
+    assert offered == [path == "float"]
 
 
 def test_wrong_rung_int8_and_missing_card_are_refused(tmp_path, archive, nets):
