@@ -228,6 +228,20 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      4 is never offered for capture, and under a CPU profiler counts one
      ``attention_calls`` per attention layer and one
      ``transunet.transformer`` span per batch;
+ 16. Swin UNETR (``models/swinunetr.py``, needs only phase 1): one batch of
+     SWIN_BATCH frames at SWIN_SIZE^2 through a seeded Swin UNETR at
+     feature size SWIN_FEATURES, float32 with TF32 off: the kernel that
+     ``F.scaled_dot_product_attention`` runs for the window attention
+     (from a profiled forward) and its device time against the window
+     attention's roofline (``fluorobench/counts_swinunetr.py``); each
+     block's window attention on the forward's own inputs against the
+     explicit float64 softmax of ``fluorobench/reference/swinunetr.py``
+     (largest gap over the largest output); the forward's card time with
+     cuDNN's algorithms chosen by measurement, as the full-res path runs
+     it, and its device time split into convolutions, GEMMs, the window
+     attention and the memory-bound rest; its peak memory over what was
+     allocated before it, and the bytes of the masks the attention
+     materialises; ``window_attention_calls`` 8 a forward;
  12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
@@ -330,6 +344,13 @@ LADDER_EPOCHS = 2
 GRAPH_FRAMES = 8
 GRAPH_EAGER_BATCHES = (4, 64)  # the 2x cells' batch, and ensemble-8x-b64's
 GRAPH_TRANSUNET = {}  # TrainConfig sizes of the seeded TransUNet (default: R50-ViT-B/16)
+
+# the Swin UNETR phase: one batch through a seeded net at the 2x rung's size
+SWIN_BATCH = 4
+SWIN_SIZE = 736
+SWIN_FEATURES = 48
+SWIN_TIMED = 5  # forwards timed with CUDA events after two warm-ups
+SWIN_ATTENTION_GAP = 1e-4  # float32 attention against float64, over the largest output
 
 # the int8 phase: every distinct convolution of the 8x net held bit-equal
 # to its plain version at INT8_CHECK_BATCH frames and timed at the
@@ -1575,6 +1596,118 @@ def phase_graphs(seed, workdir, member_paths, card):
             raise AssertionError("the TransUNet at batch {} was offered for capture or lost its records".format(batch))
     del tu, unet_2x, members
     return decisions
+
+
+def phase_swinunetr(seed, card):
+    """Phase 16 (module docstring). Returns its summary."""
+    from fluorobench import counts_swinunetr
+    from fluorobench.reference import swinunetr as ref
+    from deepfluoro_tpu_torch.infer.batches import measured_algorithms
+    from deepfluoro_tpu_torch.models.swinunetr import MASK_ALIGN, WindowAttention
+    from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
+    from deepfluoro_tpu_torch.utils import profiling
+
+    torch.manual_seed(seed)
+    tcfg = TrainConfig(arch="swinunetr", num_classes=7, num_lands=14, proj_unet_dim=SWIN_SIZE,
+                       feature_size=SWIN_FEATURES)
+    net = build_model(tcfg).to(DEVICE).eval()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, WindowAttention):
+                m.relative_position_bias_table.uniform_(-0.02, 0.02)
+    x = torch.randn(SWIN_BATCH, 1, SWIN_SIZE, SWIN_SIZE, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(seed + 16))
+    cfg = dict(feature_size=tcfg.feature_size, swin_depths=list(tcfg.swin_depths), swin_heads=list(tcfg.swin_heads),
+               window_size=tcfg.window_size, num_classes=tcfg.num_classes, num_lands=tcfg.num_lands)
+    attns = [(name, m) for name, m in net.named_modules() if isinstance(m, WindowAttention)]
+    seen = {}
+    hooks = [m.register_forward_hook(lambda m, args, out, name=name: seen.__setitem__(name, (args, out)))
+             for name, m in attns]
+    baseline = _peak_start()
+    with torch.no_grad(), measured_algorithms():
+        net(x)
+    _sync()
+    peak = _peak_since(baseline)
+    for h in hooks:
+        h.remove()
+    # each block's attention on its own inputs against the explicit float64 softmax
+    gaps = {}
+    stages = counts_swinunetr.stages(cfg, SWIN_SIZE)
+    for i, (name, m) in enumerate(attns):
+        (windows, frames, mask), out = seen.pop(name)
+        stage = stages[i // 2]
+        shift = i % 2 == 1 and stage["shifted"]
+        p = {"a." + k: v.double() for k, v in m.state_dict().items() if v.is_floating_point()}
+        ref_mask = None
+        if shift:
+            side = int(math.isqrt(stage["windows"])) * stage["window"]
+            ref_mask = ref.compute_mask(side, side, stage["window"], stage["window"] // 2, DEVICE)
+            if mask is None or not torch.equal(mask[..., :ref_mask.shape[-1]], ref_mask):
+                raise AssertionError("block {}'s shift mask differs from compute_mask's".format(name))
+        want = ref.window_attention(ref.Numerics(torch.float64), p, "a", windows.double(), m.heads,
+                                    tcfg.window_size, ref_mask)
+        gaps[name] = float((out.double() - want).abs().max() / want.abs().max())
+        del want, windows, out
+    seen.clear()
+    # per stage, the unshifted block's mask (the bias) and the shifted one's (the bias and the shift mask
+    # of every window), rows padded to MASK_ALIGN elements
+    mask_bytes = {}
+    for s in stages:
+        one = 4 * s["heads"] * s["window"] ** 2 * (s["window"] ** 2 + -s["window"] ** 2 % MASK_ALIGN)
+        mask_bytes[s["side"]] = [one, one * s["windows"] if s["shifted"] else one]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad(), measured_algorithms():
+        for _ in range(2):
+            net(x)
+        start.record()
+        for _ in range(SWIN_TIMED):
+            net(x)
+        end.record()
+        end.synchronize()
+        forward_ms = start.elapsed_time(end) / SWIN_TIMED
+        from torch.profiler import ProfilerActivity, profile
+
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            net(x)
+            torch.cuda.synchronize()
+    calls = profiling.recorded()[1].get("window_attention_calls", 0)
+    profiling.reset()
+    device, parts = {}, dict(convolutions=0.0, gemms=0.0, attention=0.0, memory_bound=0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        name = e.key.lower()
+        if not t or e.key.startswith(("aten::", "cuda")) or e.key in ("swinunetr.swin", "swinunetr.decoder"):
+            continue
+        if any(k in name for k in ("fmha", "flash_fwd", "attention")):
+            device[e.key] = (t / 1e3, e.count)
+            parts["attention"] += t / 1e3
+        elif any(k in name for k in ("fprop", "dgrad", "wgrad", "convolve", "conv", "fft", "winograd", "cudnn")):
+            parts["convolutions"] += t / 1e3
+        elif "gemm" in name:
+            parts["gemms"] += t / 1e3
+        else:
+            parts["memory_bound"] += t / 1e3
+    attention_ms = sum(t for t, _ in device.values())
+    bound_ms = 1e3 * counts_swinunetr.window_attention_bound_s(cfg, SWIN_BATCH, SWIN_SIZE)
+    summary = {
+        "kernels": {k: [round(t, 4), n] for k, (t, n) in device.items()},
+        "attention_ms": attention_ms, "attention_bound_ms": bound_ms,
+        "window_attention_roofline_pct": 100.0 * bound_ms / attention_ms if attention_ms else None,
+        "forward_ms": forward_ms, "frames_per_s": 1e3 * SWIN_BATCH / forward_ms, "device_ms": parts,
+        "peak_over_baseline_bytes": peak, "mask_bytes_per_stage": mask_bytes,
+        "window_attention_calls": calls, "worst_attention_gap": max(gaps.values()),
+        "parameters": sum(p.numel() for p in net.parameters()),
+    }
+    print("  {} Swin UNETR fs {} batch {} at {}^2: {}".format(_card(card), SWIN_FEATURES, SWIN_BATCH, SWIN_SIZE,
+                                                             json.dumps(summary)))
+    for name, gap in gaps.items():
+        print("    {}: attention gap to float64 {:.3e}".format(name, gap))
+    if max(gaps.values()) > SWIN_ATTENTION_GAP or calls != len(attns):
+        raise AssertionError("the window attention is off the float64 softmax or its counter is wrong")
+    del net, x
+    return summary
 
 
 def _event_ms(fn, iters=INT8_TIMED_ITERS):
@@ -3163,6 +3296,7 @@ def main(argv=None) -> int:
                 results["1 environment"])),
             ("14 host leftovers", lambda: phase_host_leftovers(args.seed, workdir, results["5 inference"][1],
                                                                 results["1 environment"])),
+            ("16 Swin UNETR", lambda: phase_swinunetr(args.seed, results["1 environment"])),
             ("12 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
@@ -3196,6 +3330,7 @@ def main(argv=None) -> int:
     print("tp summary: " + json.dumps(results["13 tensor parallel, sharded checkpoints, int8 bands"][0]))
     print("host leftovers summary: " + json.dumps(results["14 host leftovers"][0]))
     print("graphs summary: " + json.dumps(results["15 CUDA graphs"]))
+    print("swinunetr summary: " + json.dumps(results["16 Swin UNETR"]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -123,7 +123,8 @@ def fullres_batches(
         model.eval().set_bands(None)
     if mesh is not None:
         if not all(isinstance(m, UNet) for m in models):
-            raise ValueError("full-res inference on a mesh shards U-Net members only; TransUNet runs on one device")
+            raise ValueError("full-res inference on a mesh shards U-Net members only; {} runs on one device".format(
+                next(type(m).__name__ for m in models if not isinstance(m, UNet))))
         if set(mesh.axis_names) - {"data", "spatial"}:
             raise ValueError("full-res inference shards over 'data' and 'spatial' axes only; got {}".format(mesh.axes))
         if batch_size % mesh.axis("data").size:

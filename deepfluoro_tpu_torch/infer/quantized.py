@@ -352,7 +352,8 @@ def int8_forwards(models, calib_inputs, float_levels: int = 0) -> list:
     ``calib_inputs``, the finest ``float_levels`` levels in float: what
     the ensemble and full-res loops run in place of the modules."""
     if not all(isinstance(m, UNet) for m in models):
-        raise ValueError("int8 inference quantizes U-Net members only; TransUNet runs in float32")
+        raise ValueError("int8 inference quantizes U-Net members only; {} runs in float32".format(
+            next(type(m).__name__ for m in models if not isinstance(m, UNet))))
     int8_points = make_level_filter(float_levels, len(models[0].down_path))
     return member_forwards(prepare_quantized_ensemble(models, calib_inputs), int8_points)
 

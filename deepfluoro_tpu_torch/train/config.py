@@ -4,12 +4,14 @@ and the checkpoint metadata, under the reference's key names
 (train.py:475-513) so the JAX package and the reference read this port's
 checkpoints.
 
-``arch`` picks the network: ``'unet'`` (the recipe's U-Net, the default)
-or ``'transunet'`` (``models/transunet.py``, TransUNet R50-ViT, which has
-no JAX counterpart; its sizes default to R50-ViT-B/16 and its grid is
-``proj_unet_dim / 16``). A U-Net's checkpoint meta holds the JAX
-package's keys and no others; a TransUNet's adds ``arch`` and its sizes,
-and a meta without ``arch`` is a U-Net's.
+``arch`` picks the network: ``'unet'`` (the recipe's U-Net, the default),
+``'transunet'`` (``models/transunet.py``, TransUNet R50-ViT; its sizes
+default to R50-ViT-B/16 and its grid is ``proj_unet_dim / 16``) or
+``'swinunetr'`` (``models/swinunetr.py``, Swin UNETR in 2D; its sizes
+default to the published feature size 48). Neither of the two has a JAX
+counterpart. A U-Net's checkpoint meta holds the JAX package's keys and
+no others; another network's adds ``arch`` and its own sizes, and a meta
+without ``arch`` is a U-Net's.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from deepfluoro_tpu_torch.models.swinunetr import SwinUNETR
 from deepfluoro_tpu_torch.models.transunet import TransUNet
 from deepfluoro_tpu_torch.models.unet import UNet
 
-ARCHS = ("unet", "transunet")
+ARCHS = ("unet", "transunet", "swinunetr")
 
 
 @dataclasses.dataclass
@@ -73,7 +76,8 @@ class TrainConfig:
     # append a left/right mirror of every training sample, after the split
     # (data/hdf5.py::lr_flip_duplicate)
     dup_lr_flip: bool = False
-    # the network: 'unet' or 'transunet'; the sizes below are TransUNet's
+    # the network: 'unet', 'transunet' or 'swinunetr'; the sizes below are
+    # TransUNet's, then Swin UNETR's
     arch: str = "unet"
     hidden_size: int = 768
     num_heads: int = 12
@@ -83,6 +87,10 @@ class TrainConfig:
     resnet_width: int = 64
     gn_groups: int = 32
     decoder_channels: tuple = (256, 128, 64, 16)
+    feature_size: int = 48
+    swin_depths: tuple = (2, 2, 2, 2)
+    swin_heads: tuple = (3, 6, 12, 24)
+    window_size: int = 7
 
     _META_KEYS = {
         "num-classes": "num_classes",
@@ -119,23 +127,30 @@ class TrainConfig:
         "remat": "remat",
         "dup-lr-flip": "dup_lr_flip",
     }
-    # written only for a TransUNet
-    _TRANSUNET_META_KEYS = {
-        "arch": "arch",
-        "vit-hidden-size": "hidden_size",
-        "vit-num-heads": "num_heads",
-        "vit-mlp-dim": "mlp_dim",
-        "vit-num-layers": "num_layers",
-        "resnet-units": "resnet_units",
-        "resnet-width": "resnet_width",
-        "gn-groups": "gn_groups",
-        "decoder-channels": "decoder_channels",
+    # written only for the network they name
+    _ARCH_META_KEYS = {
+        "transunet": {
+            "arch": "arch",
+            "vit-hidden-size": "hidden_size",
+            "vit-num-heads": "num_heads",
+            "vit-mlp-dim": "mlp_dim",
+            "vit-num-layers": "num_layers",
+            "resnet-units": "resnet_units",
+            "resnet-width": "resnet_width",
+            "gn-groups": "gn_groups",
+            "decoder-channels": "decoder_channels",
+        },
+        "swinunetr": {
+            "arch": "arch",
+            "swin-feature-size": "feature_size",
+            "swin-depths": "swin_depths",
+            "swin-num-heads": "swin_heads",
+            "swin-window-size": "window_size",
+        },
     }
 
     def to_checkpoint_meta(self) -> dict:
-        keys = dict(self._META_KEYS)
-        if self.arch != "unet":
-            keys.update(self._TRANSUNET_META_KEYS)
+        keys = dict(self._META_KEYS, **self._ARCH_META_KEYS.get(self.arch, {}))
         meta = {k: getattr(self, attr) for k, attr in keys.items()}
         return {k: list(v) if isinstance(v, tuple) else v for k, v in meta.items()}
 
@@ -145,7 +160,10 @@ class TrainConfig:
         meta without ``arch`` is a U-Net's."""
         cfg = dataclasses.replace(base) if base is not None else cls()
         cfg.arch = "unet"
-        for k, attr in dict(cls._META_KEYS, **cls._TRANSUNET_META_KEYS).items():
+        keys = dict(cls._META_KEYS)
+        for arch_keys in cls._ARCH_META_KEYS.values():
+            keys.update(arch_keys)
+        for k, attr in keys.items():
             if k in meta:
                 setattr(cfg, attr, tuple(meta[k]) if isinstance(meta[k], list) else meta[k])
         return cfg
@@ -159,19 +177,26 @@ class TrainConfig:
 
 def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> nn.Module:
     """The U-Net train.py:313 builds from these flags, or with ``arch``
-    'transunet' a TransUNet for ``proj_unet_dim``-square inputs (float32,
-    no remat). The landmark head's shape is not among the flags (train.py
-    leaves it at its defaults); a loader passes the shape a checkpoint's
-    keys show."""
+    'transunet' a TransUNet and with 'swinunetr' a Swin UNETR for
+    ``proj_unet_dim``-square inputs (float32, no remat). The landmark
+    head's shape is not among the flags (train.py leaves it at its
+    defaults); a loader passes the shape a checkpoint's keys show."""
     if cfg.arch not in ARCHS:
         raise ValueError("arch must be one of {}, got {!r}".format(", ".join(ARCHS), cfg.arch))
+    if cfg.arch != "unet" and (cfg.dtype != torch.float32 or cfg.remat or lands_block_depth):
+        raise ValueError("{} runs in float32 without remat and with a 1x1 landmark head".format(
+            "TransUNet" if cfg.arch == "transunet" else "Swin UNETR"))
     if cfg.arch == "transunet":
-        if cfg.dtype != torch.float32 or cfg.remat or lands_block_depth:
-            raise ValueError("TransUNet runs in float32 without remat and with a 1x1 landmark head")
         return TransUNet(
             n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, hidden=cfg.hidden_size,
             heads=cfg.num_heads, mlp_dim=cfg.mlp_dim, layers=cfg.num_layers, units=tuple(cfg.resnet_units),
             width=cfg.resnet_width, groups=cfg.gn_groups, decoder_channels=tuple(cfg.decoder_channels),
+            lands_num_1x1=lands_num_1x1,
+        )
+    if cfg.arch == "swinunetr":
+        return SwinUNETR(
+            n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, feature_size=cfg.feature_size,
+            depths=tuple(cfg.swin_depths), heads=tuple(cfg.swin_heads), window=cfg.window_size,
             lands_num_1x1=lands_num_1x1,
         )
     return UNet(

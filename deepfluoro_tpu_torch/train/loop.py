@@ -319,8 +319,8 @@ def fit(
     'data'. Checkpoints, best nets and loss files are one process's: the
     state is gathered over 'model' and process 0 writes it; a resume cuts
     it again. 'spatial' with ``shard_spatial`` and 'model' together raise
-    NotImplementedError, as in the JAX package. A TransUNet (``cfg.arch``)
-    on either axis raises ValueError.
+    NotImplementedError, as in the JAX package. A TransUNet or a Swin
+    UNETR (``cfg.arch``) on either axis raises ValueError.
 
     Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
     num_restarts, train_idx, valid_idx, train_losses, valid_losses,
