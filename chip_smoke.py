@@ -24,7 +24,10 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      192^2 input from 180^2 frames, batch 5, Nesterov SGD, plateau LR,
      data augmentation) for 2 epochs of an in-memory synthetic dataset made
      from ``--seed``, with checkpoints in a temporary directory; one warp
-     launch per step; ``fit``'s peak memory less what was allocated before
+     launch per step, eager or inside a replay of the step's CUDA graph
+     (``train/step.py::StepGraph``; printed apart: the kernel's counter
+     sees the eager ones, phase 17 finds the replays' in a device trace);
+     ``fit``'s peak memory less what was allocated before
      it; then the trained net's forward on the card against the same net
      on the CPU, and the BatchNorm running variances after one train-mode
      forward on each;
@@ -46,7 +49,8 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      epoch with a checkpoint and writes a light best net (< 0.75 of the
      checkpoint's size); ``stream_data=True`` against the resident feed,
      augmentation off and ``cudnn.deterministic`` on, per-step losses
-     within 1e-4 relative; one warp launch per augmented step;
+     within 1e-4 relative; one warp launch per augmented step, eager or
+     replayed as in phase 4;
   7. folds: ``fit_multifold`` over specimens 1-6 (K = 6) at the same width,
      2 epochs, then resumed to a third; one warp launch per lockstep step
      (K*B = 30 frames); lockstep steps/s, fold-steps/s and the phase's
@@ -242,6 +246,18 @@ It needs no JAX and no h5py. Phases, each with its wall time:
      attention and the memory-bound rest; its peak memory over what was
      allocated before it, and the bytes of the masks the attention
      materialises; ``window_attention_calls`` 8 a forward;
+ 17. the training step as one CUDA graph (``train/step.py::StepGraph``,
+     cuDNN deterministic): ``fit`` on phase 4's recipe for 2 epochs with
+     the graph against the same ``fit`` forced eager, the loss and state
+     gaps (0 expected) and ``step_graph_replays`` one a step after the
+     three eager ones; replays held one by one against eager steps from
+     the same weights, momentum, BatchNorm buffers and generator state,
+     their draws (copied out by the graph) equal to ``draw_augmentation``
+     from the recorded state and new each step, one warp kernel in each
+     replay's device trace, a cut LR captured again after an eager step;
+     ``unchanged`` and ``half_batch`` patched before the capture still
+     caught; the 2x rung's float32 step's decision logged, a step on a
+     {'data': 1} mesh logged "eager";
  12. profiler: ``torch.profiler``'s device time of the pair at each
      geometry, the cross-check of phase 3's graph timing (last, because a
      CUDA trace slows the launches that follow it).
@@ -251,10 +267,11 @@ line; a rank that fails makes its phase raise. On success a line ``int8
 summary: {...}`` carries phase 9's rates, peaks and GEMM launches and a
 line ``distributed summary: {...}`` phase 10's, a line ``spatial
 summary: {...}`` phase 11's, a line ``tp summary: {...}`` phase 13's,
-a line ``host leftovers summary: {...}`` phase 14's and a line ``graphs
-summary: {...}`` phase 15's decisions;
+a line ``host leftovers summary: {...}`` phase 14's, a line ``graphs
+summary: {...}`` phase 15's decisions and a line ``training graph
+summary: {...}`` phase 17's;
 the line before the last is a JSON object describing the kernel (with its
-times at every geometry and its launches on each path: training, resume
+times at every geometry and its eager launches on each path: training, resume
 and stream, folds, 2x and 1x ladder training, data-parallel training in
 float32 and in bf16 with remat, fold-sharded training, the augmented
 resume from the JAX checkpoint, row-sharded training at 8x and at 2x,
@@ -344,6 +361,14 @@ LADDER_EPOCHS = 2
 GRAPH_FRAMES = 8
 GRAPH_EAGER_BATCHES = (4, 64)  # the 2x cells' batch, and ensemble-8x-b64's
 GRAPH_TRANSUNET = {}  # TrainConfig sizes of the seeded TransUNet (default: R50-ViT-B/16)
+
+# the training graph phase: fit's epochs with the graph and forced eager,
+# replays held one by one against eager steps, and the 2x rung's frames
+# (0.85 of them train: five full batches of 5, so two steps after the
+# three that decide)
+TRAIN_GRAPH_EPOCHS = 2
+TRAIN_GRAPH_STEPS = 4
+TRAIN_GRAPH_2X_FRAMES = 30
 
 # the Swin UNETR phase: one batch through a seeded net at the 2x rung's size
 SWIN_BATCH = 4
@@ -667,17 +692,18 @@ def phase_training(seed, workdir, card):
     before_fit = torch.cuda.memory_allocated()
     warp.warp_launches = 0
     t0 = time.perf_counter()
-    out = fit(
-        data, [2, 3, 4, 5, 6], cfg,
-        checkpoint_filename=ck_path,
-        best_valid_filename=os.path.join(workdir, "best_net.pt"),
-        train_loss_txt=os.path.join(workdir, "train_iter_loss.txt"),
-        valid_loss_txt=os.path.join(workdir, "valid_loss.txt"),
-        device="cuda",
-    )
+    with _fit_graphs() as graphs:
+        out = fit(
+            data, [2, 3, 4, 5, 6], cfg,
+            checkpoint_filename=ck_path,
+            best_valid_filename=os.path.join(workdir, "best_net.pt"),
+            train_loss_txt=os.path.join(workdir, "train_iter_loss.txt"),
+            valid_loss_txt=os.path.join(workdir, "valid_loss.txt"),
+            device="cuda",
+        )
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = warp.warp_launches
+    launches, replays, captures = warp.warp_launches, sum(g.replays for g in graphs), sum(g.captures for g in graphs)
 
     model = out["model"]
     losses = out["train_losses"] + out["valid_losses"]
@@ -689,9 +715,11 @@ def phase_training(seed, workdir, card):
         raise AssertionError("non-finite loss")
     if not all(p.device.type == "cuda" for p in model.parameters()):
         raise AssertionError("a parameter is off the card")
-    if launches != n_steps:
-        raise AssertionError("warp launches {} != 1 x {} steps".format(launches, n_steps))
-    print("  warp kernel launches during fit: {} (1 per step)".format(launches))
+    print("  warp kernel launches during fit: {} calls ({} eager steps, {} captures of the step's CUDA graph), and {} "
+          "replayed steps, in {} steps".format(launches, n_steps - replays, captures, replays, n_steps))
+    if launches != n_steps - replays + captures:
+        raise AssertionError("warp launches {} != 1 x {} eager steps + {} captures".format(launches, n_steps - replays,
+                                                                                       captures))
 
     ck = load_checkpoint(ck_path)
     for key in ("model-state-dict", "optimizer-state-dict", "scheduler-state-dict", "epoch", "loss",
@@ -952,6 +980,27 @@ def _sync():
         torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def _fit_graphs():
+    """The training-step graphs (``train/step.py::StepGraph``) that the
+    ``fit`` calls in the body make. The warp's counter counts the calls of
+    its launch: one per eager step and one per capture, which records the
+    launch in the graph; a replayed step runs that recorded launch, which
+    the counter does not see (phase 17 finds it in a device trace)."""
+    from deepfluoro_tpu_torch.train import loop
+
+    made, offer = [], loop.offer_graph
+
+    def kept(*args, **kwargs):
+        graph = offer(*args, **kwargs)
+        if graph is not None:
+            made.append(graph)
+        return graph
+
+    with mock.patch.object(loop, "offer_graph", kept):
+        yield made
+
+
 def _fit_files(workdir, tag):
     return {k: os.path.join(workdir, "{}_{}".format(tag, v)) for k, v in dict(
         checkpoint_filename="ck.pt", best_valid_filename="best.pt", train_loss_txt="train.txt",
@@ -977,8 +1026,9 @@ def phase_resume_and_stream(seed, workdir, card):
     pats = [2, 3, 4, 5, 6]
     files = _fit_files(workdir, "resume")
     warp.warp_launches = 0
-    first = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE, **files)
-    resumed = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=2), verbose=False, device=DEVICE, **files)
+    with _fit_graphs() as graphs:
+        first = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE, **files)
+        resumed = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=2), verbose=False, device=DEVICE, **files)
     _sync()
     launches = warp.warp_launches
     steps = len(first["train_losses"]) + len(resumed["train_losses"])
@@ -1010,8 +1060,9 @@ def phase_resume_and_stream(seed, workdir, card):
     files = _fit_files(workdir, "sigterm")
     loop_mod.train_step = step_then_sigterm
     try:
-        stopped = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=5, light_best_nets=True), verbose=False,
-                      device=DEVICE, **files)
+        with _fit_graphs() as more:
+            stopped = fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=5, light_best_nets=True), verbose=False,
+                          device=DEVICE, **files)
     finally:
         loop_mod.train_step = real_step
     _sync()
@@ -1024,10 +1075,14 @@ def phase_resume_and_stream(seed, workdir, card):
     if light >= 0.75 * full:
         raise AssertionError("the light best net is not light")
     aug_steps = steps + len(stopped["train_losses"])
-    launches = warp.warp_launches
-    print("  warp kernel launches in the augmented runs: {} in {} steps".format(launches, aug_steps))
-    if launches != aug_steps:
-        raise AssertionError("warp launches {} != 1 x {} augmented steps".format(launches, aug_steps))
+    graphs += more
+    launches, replays, captures = warp.warp_launches, sum(g.replays for g in graphs), sum(g.captures for g in graphs)
+    print("  warp kernel launches in the augmented runs: {} calls ({} eager steps, {} captures of the step's CUDA "
+          "graph), and {} replayed steps, in {} steps".format(launches, aug_steps - replays, captures, replays,
+                                                               aug_steps))
+    if launches != aug_steps - replays + captures:
+        raise AssertionError("warp launches {} != 1 x {} eager augmented steps + {} captures".format(
+            launches, aug_steps - replays, captures))
 
     # the streaming feed against the resident one, augmentation off
     deterministic = torch.backends.cudnn.deterministic
@@ -1596,6 +1651,287 @@ def phase_graphs(seed, workdir, member_paths, card):
             raise AssertionError("the TransUNet at batch {} was offered for capture or lost its records".format(batch))
     del tu, unet_2x, members
     return decisions
+
+
+@contextlib.contextmanager
+def _step_log():
+    """The training step's INFO messages (``train/step.py``: each offer
+    refused, each capture decision) logged in the body."""
+    import logging
+
+    from deepfluoro_tpu_torch.train import step as tstep
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger, handler = logging.getLogger(tstep.__name__), Keep(logging.INFO)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def _train_state(model, optimizer, gen):
+    """Clones of the model's state dict (parameters and BatchNorm buffers),
+    the momentum buffers and the generator's state."""
+    out = {"sd." + k: v.detach().clone() for k, v in model.state_dict().items()}
+    out.update({"momentum.{}".format(i): optimizer.state[p]["momentum_buffer"].clone()
+                for i, p in enumerate(model.parameters()) if "momentum_buffer" in optimizer.state.get(p, {})})
+    out["gen"] = gen.get_state()
+    return out
+
+
+def _restore_train_state(state, model, optimizer, gen):
+    """Put ``_train_state``'s clones back into the same tensors (a graph reads
+    and writes them by address)."""
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(state["sd." + k])
+        for i, p in enumerate(model.parameters()):
+            if "momentum.{}".format(i) in state:
+                optimizer.state[p]["momentum_buffer"].copy_(state["momentum.{}".format(i)])
+    gen.set_state(state["gen"])
+
+
+def _state_gap(a, b):
+    """The largest |difference| over every tensor of two ``_train_state``s
+    (the generator's state compared as bytes: 0 or inf)."""
+    gap = 0.0 if torch.equal(a["gen"], b["gen"]) else math.inf
+    for k in a:
+        if k != "gen":
+            gap = max(gap, float((a[k].double() - b[k].double()).abs().max()))
+    return gap
+
+
+def phase_train_graph(seed, workdir, card):
+    """The training step as one CUDA graph (``train/step.py::StepGraph``),
+    with cuDNN deterministic so that eager runs repeat: (a) ``fit`` on the
+    8x recipe at full width for TRAIN_GRAPH_EPOCHS epochs decides for a
+    graph and replays every full batch after the three it times, under a
+    CPU profiler (``step_graph_replays``), against the same ``fit`` with
+    every decision forced eager: the largest loss and state gaps, warp
+    launch calls only in the three deciding steps and the capture, and in
+    every eager step; (b) TRAIN_GRAPH_STEPS replays of a step whose draws the graph
+    copies out (the copy captured with it), then a step at the plateau
+    schedule's cut LR (eager on the capture's stream, then captured again)
+    and a replay at it, each held against an eager step from the same
+    weights, momentum, BatchNorm buffers and generator state: loss, state
+    and the generator's next state equal bit for bit, the replayed draws
+    equal to ``draw_augmentation`` from the recorded state and different
+    from step to step, one ``affine_warp`` kernel in each replay's device
+    trace; (c) the
+    planted faults ``unchanged`` (SGD's step a no-op) and ``half_batch``
+    (the loss over half the batch) patched before the capture: the replays
+    leave the weights unchanged, and replay the half-batch loss of an eager
+    step; (d) the 2x rung's float32 step (``fit`` at 718 -> 736, batch 5)
+    logs its decision by the same rule, and replays where it captured
+    (with the growth of the caching allocator's pool); a step on a
+    {'data': 1} mesh logs "eager". Returns the decisions and gaps."""
+    from deepfluoro_tpu_torch.data import augment
+    from deepfluoro_tpu_torch.data.augment import AugmentConfig
+    from deepfluoro_tpu_torch.data.fixtures import make_synthetic_data
+    from deepfluoro_tpu_torch.ops import warp
+    from deepfluoro_tpu_torch.parallel.mesh import make_mesh
+    from deepfluoro_tpu_torch.train import build_model, fit, make_optimizer, train_step
+    from deepfluoro_tpu_torch.train import step as tstep
+    from deepfluoro_tpu_torch.utils import profiling
+
+    summary = {}
+    data = _smoke_data(seed)
+    pats = [2, 3, 4, 5, 6]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        # (a) fit with the graph against fit forced eager
+        cfg = _recipe_cfg(data, seed, max_num_epochs=TRAIN_GRAPH_EPOCHS)
+        runs = {}
+        for mode in ("graph", "eager"):
+            warp.warp_launches = 0
+            forced = mock.patch.object(tstep, "graph_pays", lambda dispatch_s, device_s: False) if mode == "eager" \
+                else contextlib.nullcontext()
+            profiling.reset()
+            with forced, _step_log() as lines, _fit_graphs() as graphs, \
+                    torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                out = fit(data, pats, cfg, verbose=False, device=DEVICE, **_fit_files(workdir, "graph_" + mode))
+            _sync()
+            counts = profiling.recorded()[1]
+            profiling.reset()
+            if counts.get("step_graph_replays", 0) != sum(g.replays for g in graphs):
+                raise AssertionError("phase 17(a): step_graph_replays differs from the graph's replays")
+            runs[mode] = (out, lines, counts.get("step_graph_replays", 0), warp.warp_launches)
+        (g, g_log, g_replays, g_warps), (e, e_log, e_replays, e_warps) = runs["graph"], runs["eager"]
+        n = len(g["train_losses"])
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(g["train_losses"] + g["valid_losses"],
+                                                         e["train_losses"] + e["valid_losses"]))
+        sd_g, sd_e = g["model"].state_dict(), e["model"].state_dict()
+        param_gap = max(float((sd_g[k].double() - sd_e[k].double()).abs().max()) for k in sd_g)
+        print("  {} (a) fit, {} epochs, {} steps: {}; eager run: {}; step_graph_replays {} (eager {}); warp launch "
+              "calls {} and {}; largest relative loss gap {:.3e}, largest state gap {:.3e}".format(
+                  _card(card), TRAIN_GRAPH_EPOCHS, n, " | ".join(g_log), " | ".join(e_log), g_replays, e_replays,
+                  g_warps, e_warps, loss_gap, param_gap))
+        if not any(line.endswith("one CUDA graph") for line in g_log) or g_replays != n - 1 - tstep.TIMED_RUNS \
+                or e_replays or g_warps != 1 + tstep.TIMED_RUNS + 1 or e_warps != n or len(e["train_losses"]) != n:
+            raise AssertionError("phase 17(a): the fit's graph did not engage as it should")
+        if loss_gap or param_gap:
+            raise AssertionError("phase 17(a): the graph's fit differs from the eager fit")
+        summary["a_fit"] = {"steps": n, "replays": g_replays, "decision": g_log, "loss_gap": loss_gap,
+                            "state_gap": param_gap}
+        del g, e, runs
+
+        # (b) replays step by step against eager steps from the same state
+        cfg = _recipe_cfg(data, seed)
+        aug = AugmentConfig(num_classes=cfg.num_classes, proj_pad_dim=cfg.proj_unet_dim, prob_of_aug=0.5)
+        b = cfg.batch_size
+        projs, segs, lands = (torch.from_numpy(a).to(DEVICE) for a in (data.projs, data.segs, data.lands))
+        batches = [(projs[i : i + b], segs[i : i + b], lands[i : i + b]) for i in range(0, len(projs) - b + 1, b)]
+
+        def fresh(salt):
+            torch.manual_seed(seed + salt)
+            model = build_model(cfg).to(DEVICE)
+            return model, make_optimizer(cfg, model.parameters()), torch.Generator(device=DEVICE).manual_seed(seed + salt)
+
+        model, optimizer, gen = fresh(17)
+        graph = tstep.StepGraph()
+        seen = {}
+        draw = augment.draw_augmentation
+
+        def observed(*args, **kwargs):
+            # the copies are captured with the step: every replay writes its
+            # draws into these tensors
+            draws = draw(*args, **kwargs)
+            for k, v in draws.items():
+                if k in seen:
+                    seen[k].copy_(v)
+                else:
+                    seen[k] = v.clone()
+            return draws
+
+        gaps, draws_prev = [], None
+        # the plateau schedule's cut: its first step runs eagerly on the
+        # capture's stream and captures the step again, the next replays
+        lrs = [cfg.init_lr] * TRAIN_GRAPH_STEPS + [cfg.init_lr * 0.1] * 2
+        with mock.patch.object(augment, "draw_augmentation", observed):
+            for i in range(1 + tstep.TIMED_RUNS):
+                train_step(model, optimizer, cfg, aug, gen, batches[i], cfg.init_lr, graph=graph)
+            if not graph.pays or graph.captures != 1:
+                raise AssertionError("phase 17(b): the 8x step decided eager or did not capture")
+            for j, lr in enumerate(lrs):
+                batch = batches[(1 + tstep.TIMED_RUNS + j) % len(batches)]
+                before = _train_state(model, optimizer, gen)
+                cut = lr != lrs[j - 1] if j else False
+                captures, launched = graph.captures, warp.warp_launches
+                # the replay's kernels in a device trace (a capture is not
+                # traced): its warp kernel runs inside the graph
+                traced = contextlib.nullcontext() if cut else torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                with traced as prof:
+                    loss_g = float(train_step(model, optimizer, cfg, aug, gen, batch, lr, graph=graph))
+                warps = None if cut else sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                                             and "affine_warp" in e.name)
+                steps_of = {"lr": lr, "captured": graph.captures - captures, "eager_warps": warp.warp_launches - launched,
+                            "traced_warps": warps}
+                replayed = {k: v.clone() for k, v in seen.items()}
+                after_g = _train_state(model, optimizer, gen)
+                redraw = torch.Generator(device=DEVICE)
+                redraw.set_state(before["gen"])
+                eager_draws = draw(redraw, b, *batch[0].shape[1:], aug)
+                _restore_train_state(before, model, optimizer, gen)
+                loss_e = float(train_step(model, optimizer, cfg, aug, gen, batch, lr))
+                after_e = _train_state(model, optimizer, gen)
+                same_draws = all(torch.equal(replayed[k], eager_draws[k]) for k in eager_draws)
+                moved = draws_prev is None or not any(torch.equal(draws_prev[k], replayed[k]) for k in ("rot", "noise"))
+                gaps.append(dict(steps_of, loss_g=loss_g, loss_e=loss_e, state_gap=_state_gap(after_g, after_e),
+                                 draws_equal=same_draws, draws_moved=moved))
+                draws_prev = replayed
+        print("  {} (b) {} steps against eager steps from the same state, the last two at the cut LR (the first of them "
+              "eager, then captured): {}".format(_card(card), len(lrs), gaps))
+        if not all(x["loss_g"] == x["loss_e"] and x["state_gap"] == 0 and x["draws_equal"] and x["draws_moved"]
+                   for x in gaps):
+            raise AssertionError("phase 17(b): a replay differs from the eager step or repeats its draws")
+        if [(x["captured"], x["eager_warps"], x["traced_warps"]) for x in gaps] != \
+                [(0, 0, 1)] * TRAIN_GRAPH_STEPS + [(1, 2, None), (0, 0, 1)]:
+            raise AssertionError("phase 17(b): a replay ran no warp kernel, or the cut LR did not capture again")
+        summary["b_replays"] = gaps
+        del model, optimizer, graph, seen
+
+        # (c) planted faults, patched before the capture
+        model, optimizer, gen = fresh(18)
+        graph = tstep.StepGraph()
+        with mock.patch.object(torch.optim.SGD, "step", lambda self, closure=None: None):
+            start = _train_state(model, optimizer, gen)
+            for i in range(1 + tstep.TIMED_RUNS + TRAIN_GRAPH_STEPS):
+                train_step(model, optimizer, cfg, aug, gen, batches[i % len(batches)], cfg.init_lr, graph=graph)
+            end = _train_state(model, optimizer, gen)
+        weights_moved = max(float((start[k] - end[k]).abs().max()) for k in start
+                            if k.startswith("sd.") and k.endswith(("weight", "bias")))
+        print("  {} (c) 'unchanged' captured: {} captures, weights moved by {:.3e} over {} steps".format(
+            _card(card), graph.captures, weights_moved, 1 + tstep.TIMED_RUNS + TRAIN_GRAPH_STEPS))
+        if graph.captures != 1 or weights_moved:
+            raise AssertionError("phase 17(c): the replayed 'unchanged' fault moved the weights")
+        model, optimizer, gen = fresh(19)
+        graph = tstep.StepGraph()
+        losses = tstep.per_sample_losses
+
+        def half(*args, **kwargs):
+            out = losses(*args, **kwargs)
+            return out[: max(1, out.shape[0] // 2)]
+
+        with mock.patch.object(tstep, "per_sample_losses", half):
+            for i in range(1 + tstep.TIMED_RUNS + 1):
+                train_step(model, optimizer, cfg, aug, gen, batches[i], cfg.init_lr, graph=graph)
+            batch = batches[2 + tstep.TIMED_RUNS]
+            before = _train_state(model, optimizer, gen)
+            loss_g = float(train_step(model, optimizer, cfg, aug, gen, batch, cfg.init_lr, graph=graph))
+            _restore_train_state(before, model, optimizer, gen)
+            loss_half = float(train_step(model, optimizer, cfg, aug, gen, batch, cfg.init_lr))
+        _restore_train_state(before, model, optimizer, gen)
+        loss_full = float(train_step(model, optimizer, cfg, aug, gen, batch, cfg.init_lr))
+        print("  {} (c) 'half_batch' captured: {} captures; replayed loss {!r}, eager half-batch loss {!r}, full-batch "
+              "loss {!r}".format(_card(card), graph.captures, loss_g, loss_half, loss_full))
+        if graph.captures != 1 or loss_g != loss_half or loss_g == loss_full:
+            raise AssertionError("phase 17(c): the replayed 'half_batch' fault is not the half-batch loss")
+        summary["c_faults"] = {"unchanged_weights_moved": weights_moved, "half_batch": [loss_g, loss_half, loss_full]}
+        del model, optimizer, graph
+    finally:
+        cudnn.deterministic = saved
+
+    # (d) the 2x rung's float32 step decides by the same rule; a step on a
+    # mesh stays eager
+    _, frame, pad, batch_2x, _ = LADDER[0]
+    data2x = make_synthetic_data(num_specimens=1, num_projs=TRAIN_GRAPH_2X_FRAMES, img_dim=frame, seed=seed + 20)
+    _sync()
+    reserved = torch.cuda.memory_reserved() if DEVICE == "cuda" else 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with _step_log() as lines_2x, _fit_graphs() as graphs:
+        out = fit(data2x, [1], _recipe_cfg(data2x, seed, proj_unet_dim=pad, batch_size=batch_2x, max_num_epochs=1),
+                  verbose=False, device=DEVICE, **_fit_files(workdir, "graph_2x"))
+    grew = (torch.cuda.max_memory_reserved() if DEVICE == "cuda" else 0) - reserved
+    replays_2x, steps_2x = sum(g.replays for g in graphs), len(out["train_losses"])
+    with _step_log() as lines_dp:
+        fit(data, pats, _recipe_cfg(data, seed, max_num_epochs=1), verbose=False, device=DEVICE,
+            mesh=make_mesh({"data": 1}), **_fit_files(workdir, "graph_dp"))
+    print("  {} (d) 2x float32 fit: {}; {} replays in {} steps, losses {}, the caching allocator's pool grew by {} bytes "
+          "at most over the fit; {{'data': 1}} mesh fit: {}".format(
+              _card(card), " | ".join(lines_2x), replays_2x, steps_2x, ["%.4f" % v for v in out["train_losses"]], grew,
+              " | ".join(lines_dp)))
+    graphed = bool(lines_2x) and lines_2x[-1].endswith(": one CUDA graph")
+    if not (lines_2x and lines_2x[-1].endswith((": eager", ": one CUDA graph"))) or (graphed and not replays_2x) \
+            or not all(math.isfinite(v) for v in out["train_losses"]):
+        raise AssertionError("phase 17(d): the 2x step decided nothing, or its graph replayed no step")
+    if lines_dp != ["training step: eager (on a mesh)"]:
+        raise AssertionError("phase 17(d): the mesh step did not stay eager")
+    summary["d_decisions"] = {"2x": lines_2x, "2x_replays": replays_2x, "2x_pool_growth": grew, "mesh": lines_dp}
+    del data2x, out
+    return summary
 
 
 def phase_swinunetr(seed, card):
@@ -2474,13 +2810,16 @@ def _phase_jax_checkpoint(seed, workdir, card):
     aug_files = _fit_files(workdir, "jaxck_aug")
     torch.save(aug, aug_files["checkpoint_filename"])
     warp.warp_launches = 0
-    out = fit(data, mod.PATS, TrainConfig(**dict(mod.RECIPE, max_num_epochs=2)), verbose=False, device=DEVICE,
-              **aug_files)
+    with _fit_graphs() as graphs:
+        out = fit(data, mod.PATS, TrainConfig(**dict(mod.RECIPE, max_num_epochs=2)), verbose=False, device=DEVICE,
+                  **aug_files)
     _sync()
     launches, steps = warp.warp_launches, len(out["train_losses"])
-    print("      the same resume with augmentation on: {} warp launches in {} steps (1 per step), losses {}".format(
-        launches, steps, ["%.4f" % v for v in out["train_losses"]]))
-    if launches != steps or not all(math.isfinite(v) for v in out["train_losses"]):
+    replays, captures = sum(g.replays for g in graphs), sum(g.captures for g in graphs)
+    print("      the same resume with augmentation on: {} warp launch calls ({} eager steps, {} captures of the step's "
+          "CUDA graph) and {} replayed steps in {} steps, losses {}".format(
+              launches, steps - replays, captures, replays, steps, ["%.4f" % v for v in out["train_losses"]]))
+    if launches != steps - replays + captures or not all(math.isfinite(v) for v in out["train_losses"]):
         raise AssertionError("phase 11(a): the augmented resume did not launch the warp kernel once per step")
 
     out_pt = os.path.join(workdir, "exported.pt")
@@ -3297,6 +3636,7 @@ def main(argv=None) -> int:
             ("14 host leftovers", lambda: phase_host_leftovers(args.seed, workdir, results["5 inference"][1],
                                                                 results["1 environment"])),
             ("16 Swin UNETR", lambda: phase_swinunetr(args.seed, results["1 environment"])),
+            ("17 training graph", lambda: phase_train_graph(args.seed, workdir, results["1 environment"])),
             ("12 profiler", lambda: phase_profiler(*results["3 kernel vs plain"])),
         ]
         results = {}
@@ -3331,6 +3671,7 @@ def main(argv=None) -> int:
     print("host leftovers summary: " + json.dumps(results["14 host leftovers"][0]))
     print("graphs summary: " + json.dumps(results["15 CUDA graphs"]))
     print("swinunetr summary: " + json.dumps(results["16 Swin UNETR"]))
+    print("training graph summary: " + json.dumps(results["17 training graph"]))
     print("total {:.1f} s".format(time.perf_counter() - t_all))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

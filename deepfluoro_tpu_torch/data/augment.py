@@ -40,6 +40,7 @@ costs one kernel launch, which warps the projection and the labels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +78,16 @@ def _rescale01(p: torch.Tensor):
     lo = p.amin(dim=(1, 2), keepdim=True)
     hi = p.amax(dim=(1, 2), keepdim=True)
     return (p - lo) / (hi - lo), lo, hi
+
+
+@functools.lru_cache(maxsize=None)
+def _erase_sizes(hp: int, wp: int, device: torch.device):
+    """The erase boxes' mean size and the frame's (rows, cols), float32
+    ``(2,)`` tensors on ``device``, made once per frame and device: a copy
+    from host memory inside the step could not be captured in a CUDA graph
+    (``train/step.py::StepGraph``)."""
+    return (torch.tensor([hp * 0.15, wp * 0.15], dtype=torch.float32, device=device),
+            torch.tensor([hp, wp], dtype=torch.float32, device=device))
 
 
 def draw_augmentation(gen: torch.Generator, b: int, h: int, w: int, cfg: AugmentConfig) -> dict:
@@ -160,8 +171,7 @@ def apply_augmentation(draws: dict, p: torch.Tensor, s: torch.Tensor | None, lan
         lands = transform_landmarks(lands, ml.to(p.device), (h, w))
 
     hp2, wp2 = p.shape[1:]
-    box_mean = torch.tensor([hp2 * 0.15, wp2 * 0.15], dtype=torch.float32, device=p.device)
-    limit = torch.tensor([hp2, wp2], dtype=torch.float32, device=p.device)
+    box_mean, limit = _erase_sizes(hp2, wp2, p.device)
     rows = torch.arange(hp2, device=p.device)[None, :, None]
     cols = torch.arange(wp2, device=p.device)[None, None, :]
     for k in range(MAX_ERASE_BOXES):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from deepfluoro_tpu_torch.models.unet import UNet
+from deepfluoro_tpu_torch.utils.graphs import TIMED_RUNS, capture, graph_pays, on_stream, timed
 from deepfluoro_tpu_torch.utils.profiling import count, span
 
 # candidates cuDNN times per convolution shape under measured_algorithms (in
@@ -25,19 +26,6 @@ from deepfluoro_tpu_torch.utils.profiling import count, span
 # H100 the first forward then takes 2.8 s instead of 5.0-5.4 s, and the
 # forward 49.5 ms instead of 49.1-49.4 ms
 MEASURED_CANDIDATES = 5
-
-# the host's dispatch of a forward, as a share of the card's time for it,
-# at or above which the card waits for the host and the forward is
-# replayed as one CUDA graph. Where the host sets the pace the card's time
-# holds its waits for the launches, and the share reads about 1: 0.996 at
-# batch 1 of the K = 6 ensemble at the 8x rung on an H100; 0.16 at batch 4
-# at the 2x rung and at batch 64 at 8x
-GRAPH_DISPATCH_SHARE = 0.5
-# eager forwards timed for that decision, each side the least of them: a
-# preempted host, or an allocation the first one makes, only lengthens a
-# forward's dispatch (one timed forward of a TransUNet at batch 4 at the
-# 2x rung read 0.49 where another read 0.22)
-TIMED_FORWARDS = 2
 
 _log = logging.getLogger(__name__)
 
@@ -78,42 +66,28 @@ def may_capture(models, mesh=None, quantized: bool = False) -> bool:
     return mesh is None and not quantized and all(isinstance(m, UNet) for m in models)
 
 
-def graph_pays(dispatch_s: float, device_s: float) -> bool:
-    """Whether a forward whose host dispatch took ``dispatch_s`` and whose
-    run on the card took ``device_s`` is worth replaying as one CUDA
-    graph: where the dispatch is at least ``GRAPH_DISPATCH_SHARE`` of the
-    card's time, the card waits for the host's launches."""
-    return dispatch_s >= GRAPH_DISPATCH_SHARE * device_s
-
-
 def _captured(run, projs, rots):
     """``(graph, outputs)``: ``run(projs, rots)`` on these device tensors
     captured as one CUDA graph, whose replays read them and write
-    ``outputs``; or None where ``graph_pays`` says no. ``TIMED_FORWARDS``
-    eager forwards measure both sides: the host's dispatch (the call to
-    its return) and the card's time (CUDA events around it). The decision
-    is logged at INFO. The forwards before it chose and cached every
-    convolution's algorithm, so the capture times no candidate."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ``outputs``; or None where ``graph_pays`` says no. ``TIMED_RUNS``
+    eager forwards measure both sides: the host's dispatch (the call to its
+    return) and the card's time (CUDA events around it), the last on the
+    stream the capture uses. The decision is logged at INFO. The forwards
+    before it chose and cached every convolution's algorithm, so the
+    capture times no candidate."""
     dispatch_s = device_s = math.inf
+    stream = torch.cuda.Stream(projs.device)
     with measured_algorithms():
-        for _ in range(TIMED_FORWARDS):
-            start.record()
-            t0 = time.perf_counter()
-            run(projs, rots)
-            dispatch_s = min(dispatch_s, time.perf_counter() - t0)
-            end.record()
-            end.synchronize()
-            device_s = min(device_s, start.elapsed_time(end) / 1e3)
+        for i in range(TIMED_RUNS):
+            on = stream if i == TIMED_RUNS - 1 else None
+            _, dispatch, device = timed(lambda: on_stream(lambda: run(projs, rots), on))
+            dispatch_s, device_s = min(dispatch_s, dispatch), min(device_s, device)
         pays = graph_pays(dispatch_s, device_s)
         _log.info("batch of %d: host dispatch %.3f ms, card %.3f ms: %s", int(projs.shape[0]), 1e3 * dispatch_s,
                   1e3 * device_s, "one CUDA graph" if pays else "eager")
         if not pays:
             return None
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = run(projs, rots)
-    return graph, outputs
+        return capture(lambda: run(projs, rots), stream)
 
 
 @torch.no_grad()

@@ -69,7 +69,7 @@ from deepfluoro_tpu_torch.parallel.sharding import (
 from deepfluoro_tpu_torch.train.checkpoint import AsyncCheckpointer, load_checkpoint
 from deepfluoro_tpu_torch.train.config import TrainConfig, build_model
 from deepfluoro_tpu_torch.train.schedules import ReduceLROnPlateau, WarmRestartLR
-from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, set_lr, train_step
+from deepfluoro_tpu_torch.train.step import eval_losses, make_optimizer, offer_graph, set_lr, train_step
 from deepfluoro_tpu_torch.utils.io import RunningFloatWriter
 from deepfluoro_tpu_torch.utils.platform import get_device
 from deepfluoro_tpu_torch.utils.profiling import count, span
@@ -322,6 +322,17 @@ def fit(
     NotImplementedError, as in the JAX package. A TransUNet or a Swin
     UNETR (``cfg.arch``) on either axis raises ValueError.
 
+    On one CUDA card, a float32 U-Net step with SGD and a plateau or
+    constant LR goes through a ``train/step.py::StepGraph``
+    (``offer_graph``, which logs any other step as eager): three eager
+    full-batch steps decide by the rule of ``utils/graphs.py`` (the host's
+    dispatch sets the pace), and where it says so every later full-batch
+    step replays the whole step as one CUDA graph, with the eager step's
+    arithmetic and draws (a step at a new LR runs eagerly and captures the
+    step again). ``fit.step``
+    then spans the batch's copy and the replay's launch, and
+    ``fit.loss_readback`` the card's work.
+
     Returns dict(model, optimizer, cfg, best_valid_loss, epoch,
     num_restarts, train_idx, valid_idx, train_losses, valid_losses,
     step_seconds) for this session; ``step_seconds`` holds each iteration
@@ -455,6 +466,7 @@ def fit(
     gen = torch.Generator(device=dev)
     # a resumed session draws an augmentation stream of its own
     gen.manual_seed(cfg.seed + 1_000_003 * epoch)
+    graph = offer_graph(cfg, dev, mesh)
     # the JAX loop's numpy shuffle stream, so batch orders agree; with a
     # data axis each process takes its slice of every global batch
     part = None if axis.size == 1 else (axis.index, axis.size)
@@ -523,7 +535,7 @@ def fit(
                     lr = lr_sched.get_lr() if lr_sched is not None else cfg.init_lr
                     step = len(train_losses)
                     with span("fit.step", step):
-                        loss = train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis, shard)
+                        loss = train_step(model, optimizer, cfg, aug_train, gen, batch, lr, axis, shard, graph=graph)
                     with span("fit.loss_readback", step):
                         count("host_syncs")
                         loss = float(loss)

@@ -11,7 +11,8 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
   the batch driver of both inference front ends, ``landmarks.detect``)
   and counters (``host_syncs``, each blocking read of the device on those
   paths; ``pinned_readbacks``, each inference batch read back from a card
-  through page-locked host memory).
+  through page-locked host memory; ``step_graph_replays``, each training
+  step replayed from ``train/step.py::StepGraph``'s CUDA graph).
   They record only while a ``torch.profiler`` session is active on the
   calling thread (as
   ``torch.autograd._profiler_enabled()`` reports), into memory, and write
