@@ -60,9 +60,10 @@ def may_capture(models, mesh=None, quantized: bool = False) -> bool:
     ``run_batches`` for one CUDA graph: on one device (a mesh's ranks must
     not decide apart, and gloo's collectives cannot be captured), in float
     (the int8 forwards stay eager), and with U-Net members only: a
-    TransUNet's or a Swin UNETR's forward records its spans and its
-    ``attention_calls`` or ``window_attention_calls`` on the host, which a
-    replay would not record."""
+    TransUNet's, a Swin UNETR's or a SAMed's forward records its spans and
+    its ``attention_calls``, ``window_attention_calls`` or
+    ``rel_pos_attention_calls`` on the host, which a replay would not
+    record."""
     return mesh is None and not quantized and all(isinstance(m, UNet) for m in models)
 
 

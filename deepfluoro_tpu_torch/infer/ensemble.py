@@ -68,9 +68,9 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
     writes; the JAX package's own msgpack checkpoints are converted to it
     on load (``compat/from_jax.py::torch_checkpoint_from_jax``). The model is in eval mode on ``device`` (default CUDA), at
     the checkpoint's compute dtype and remat setting, as the JAX loader's
-    ``build_model(cfg)`` builds it: the U-Net, or the TransUNet or Swin
-    UNETR a meta with ``arch`` 'transunet' or 'swinunetr' describes
-    (``train/config.py``).
+    ``build_model(cfg)`` builds it: the U-Net, or the TransUNet, Swin
+    UNETR or SAMed a meta with ``arch`` 'transunet', 'swinunetr' or
+    'samed' describes (``train/config.py``).
 
     Checkpoints do not store the landmark head's shape; it is read from
     the state-dict keys (``lands_block.*``, ``lands_1x1.*``), as the JAX
@@ -94,9 +94,12 @@ def load_net_from_checkpoint(path: str, device=None, verbose: bool = True):
             print("              batch norm.: {}".format(cfg.batch_norm))
         elif cfg.arch == "transunet":
             print("   hidden, heads, layers: {}, {}, {}".format(cfg.hidden_size, cfg.num_heads, cfg.num_layers))
-        else:
+        elif cfg.arch == "swinunetr":
             print("   features, heads, window: {}, {}, {}".format(cfg.feature_size, list(cfg.swin_heads),
                                                                  cfg.window_size))
+        else:
+            print("   width, heads, depth, window: {}, {}, {}, {}".format(cfg.hidden_size, cfg.num_heads,
+                                                                       cfg.num_layers, cfg.sam_window_size))
         print("    reflect pad img. dim.: {}".format(cfg.proj_unet_dim))
         print("              num. lands.: {}".format(cfg.num_lands))
     head = {}

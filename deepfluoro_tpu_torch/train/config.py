@@ -6,12 +6,15 @@ checkpoints.
 
 ``arch`` picks the network: ``'unet'`` (the recipe's U-Net, the default),
 ``'transunet'`` (``models/transunet.py``, TransUNet R50-ViT; its sizes
-default to R50-ViT-B/16 and its grid is ``proj_unet_dim / 16``) or
+default to R50-ViT-B/16 and its grid is ``proj_unet_dim / 16``),
 ``'swinunetr'`` (``models/swinunetr.py``, Swin UNETR in 2D; its sizes
-default to the published feature size 48). Neither of the two has a JAX
-counterpart. A U-Net's checkpoint meta holds the JAX package's keys and
-no others; another network's adds ``arch`` and its own sizes, and a meta
-without ``arch`` is a U-Net's.
+default to the published feature size 48) or ``'samed'``
+(``models/samed.py``, SAMed: SAM's ViT-B with LoRA, prompt-free, one mask
+token per class; its sizes default to ``build_sam_vit_b``'s and its grid
+is ``proj_unet_dim / 16``; the ViT-B sizes are TransUNet's fields). None
+of the three has a JAX counterpart. A U-Net's checkpoint meta holds the
+JAX package's keys and no others; another network's adds ``arch`` and its
+own sizes, and a meta without ``arch`` is a U-Net's.
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from deepfluoro_tpu_torch.models.samed import SAMed
 from deepfluoro_tpu_torch.models.swinunetr import SwinUNETR
 from deepfluoro_tpu_torch.models.transunet import TransUNet
 from deepfluoro_tpu_torch.models.unet import UNet
 
-ARCHS = ("unet", "transunet", "swinunetr")
+ARCHS = ("unet", "transunet", "swinunetr", "samed")
+ARCH_NAMES = {"transunet": "TransUNet", "swinunetr": "Swin UNETR", "samed": "SAMed"}
 
 
 @dataclasses.dataclass
@@ -76,8 +81,9 @@ class TrainConfig:
     # append a left/right mirror of every training sample, after the split
     # (data/hdf5.py::lr_flip_duplicate)
     dup_lr_flip: bool = False
-    # the network: 'unet', 'transunet' or 'swinunetr'; the sizes below are
-    # TransUNet's, then Swin UNETR's
+    # the network: 'unet', 'transunet', 'swinunetr' or 'samed'; the sizes
+    # below are TransUNet's (the first four also SAMed's ViT-B encoder's),
+    # then Swin UNETR's, then SAMed's
     arch: str = "unet"
     hidden_size: int = 768
     num_heads: int = 12
@@ -91,6 +97,11 @@ class TrainConfig:
     swin_depths: tuple = (2, 2, 2, 2)
     swin_heads: tuple = (3, 6, 12, 24)
     window_size: int = 7
+    sam_window_size: int = 14
+    sam_global_attn_indexes: tuple = (2, 5, 8, 11)
+    sam_prompt_dim: int = 256
+    sam_decoder_heads: int = 8
+    sam_decoder_mlp_dim: int = 2048
 
     _META_KEYS = {
         "num-classes": "num_classes",
@@ -147,6 +158,18 @@ class TrainConfig:
             "swin-num-heads": "swin_heads",
             "swin-window-size": "window_size",
         },
+        "samed": {
+            "arch": "arch",
+            "vit-hidden-size": "hidden_size",
+            "vit-num-heads": "num_heads",
+            "vit-mlp-dim": "mlp_dim",
+            "vit-num-layers": "num_layers",
+            "sam-window-size": "sam_window_size",
+            "sam-global-attn-indexes": "sam_global_attn_indexes",
+            "sam-prompt-embed-dim": "sam_prompt_dim",
+            "sam-decoder-num-heads": "sam_decoder_heads",
+            "sam-decoder-mlp-dim": "sam_decoder_mlp_dim",
+        },
     }
 
     def to_checkpoint_meta(self) -> dict:
@@ -177,15 +200,15 @@ class TrainConfig:
 
 def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int = 2) -> nn.Module:
     """The U-Net train.py:313 builds from these flags, or with ``arch``
-    'transunet' a TransUNet and with 'swinunetr' a Swin UNETR for
-    ``proj_unet_dim``-square inputs (float32, no remat). The landmark
+    'transunet' a TransUNet, with 'swinunetr' a Swin UNETR and with
+    'samed' a SAMed for ``proj_unet_dim``-square inputs (float32, no
+    remat). The landmark
     head's shape is not among the flags (train.py leaves it at its
     defaults); a loader passes the shape a checkpoint's keys show."""
     if cfg.arch not in ARCHS:
         raise ValueError("arch must be one of {}, got {!r}".format(", ".join(ARCHS), cfg.arch))
     if cfg.arch != "unet" and (cfg.dtype != torch.float32 or cfg.remat or lands_block_depth):
-        raise ValueError("{} runs in float32 without remat and with a 1x1 landmark head".format(
-            "TransUNet" if cfg.arch == "transunet" else "Swin UNETR"))
+        raise ValueError("{} runs in float32 without remat and with a 1x1 landmark head".format(ARCH_NAMES[cfg.arch]))
     if cfg.arch == "transunet":
         return TransUNet(
             n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, hidden=cfg.hidden_size,
@@ -197,6 +220,14 @@ def build_model(cfg: TrainConfig, lands_block_depth: int = 0, lands_num_1x1: int
         return SwinUNETR(
             n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, feature_size=cfg.feature_size,
             depths=tuple(cfg.swin_depths), heads=tuple(cfg.swin_heads), window=cfg.window_size,
+            lands_num_1x1=lands_num_1x1,
+        )
+    if cfg.arch == "samed":
+        return SAMed(
+            n_classes=cfg.num_classes, size=cfg.proj_unet_dim, num_lands=cfg.num_lands, embed_dim=cfg.hidden_size,
+            depth=cfg.num_layers, heads=cfg.num_heads, mlp_dim=cfg.mlp_dim, window=cfg.sam_window_size,
+            global_attn_indexes=tuple(cfg.sam_global_attn_indexes), prompt_dim=cfg.sam_prompt_dim,
+            decoder_heads=cfg.sam_decoder_heads, decoder_mlp_dim=cfg.sam_decoder_mlp_dim,
             lands_num_1x1=lands_num_1x1,
         )
     return UNet(

@@ -319,8 +319,8 @@ def fit(
     'data'. Checkpoints, best nets and loss files are one process's: the
     state is gathered over 'model' and process 0 writes it; a resume cuts
     it again. 'spatial' with ``shard_spatial`` and 'model' together raise
-    NotImplementedError, as in the JAX package. A TransUNet or a Swin
-    UNETR (``cfg.arch``) on either axis raises ValueError.
+    NotImplementedError, as in the JAX package. A TransUNet, a Swin
+    UNETR or a SAMed (``cfg.arch``) on either axis raises ValueError.
 
     On one CUDA card, a float32 U-Net step with SGD and a plateau or
     constant LR goes through a ``train/step.py::StepGraph``

@@ -153,8 +153,8 @@ def offer_graph(cfg: TrainConfig, dev: torch.device, mesh=None) -> StepGraph | N
     and whose gloo collectives cannot be captured (also with one rank);
     bfloat16 compute and remat, paths of their own; another optimizer, whose
     step torch does not capture as it runs eagerly; the cosine schedule,
-    whose LR moves every step; and a TransUNet or Swin UNETR, whose forward
-    records spans and counters on the host that a replay would not."""
+    whose LR moves every step; and a TransUNet, Swin UNETR or SAMed, whose
+    forward records spans and counters on the host that a replay would not."""
     why = None
     if dev.type != "cuda":
         why = "not on a CUDA card"

@@ -24,6 +24,13 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
   profiler, ``span`` returns a shared null context after one check and
   ``count`` returns at once. The recording is one per process, as the
   profiler is.
+- ``span(name, device=True)`` and ``device_seconds``: where a span asks
+  for it, the device time of the kernels, copies and sets launched inside
+  its ranges, summed when each session ends over the kernels whose
+  launching op (the CPU op the profiler links the kernel to) began inside
+  a range of that name on the same thread (``models/samed.py``'s
+  ``samed.rel_pos_attention``: the rel-pos mask and its SDPA call). A
+  session without CUDA activity gives 0.
 - ``enable_nan_debugging``: ``torch.autograd.set_detect_anomaly``, so the
   backward op that first produces a NaN raises with the forward's trace
   (``train --debug-nans``; the JAX package's ``jax_debug_nans``).
@@ -31,6 +38,7 @@ counterpart: ``deepfluoro_tpu/utils/profiling.py``).
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import threading
 import time
@@ -46,6 +54,8 @@ _open = threading.local()  # .stack: this thread's open spans, innermost last
 _unsettled: list[Span] = []  # spans closed in the running session, on time.time_ns()
 _session = 0  # how many sessions have ended since the first span
 _hooked = False
+_device_named: set[str] = set()  # span names whose device time is summed
+_device_s: dict[str, float] = {}
 
 
 @contextlib.contextmanager
@@ -102,11 +112,18 @@ def _settle(result) -> None:
         spans = _unsettled[:]
         _unsettled.clear()
         _session += 1
+        timed = {s.name for s in spans} & _device_named
     events = getattr(result, "events", None)
     if not spans or events is None:
         return
+    events = events()
+    if timed:
+        found = device_time_inside(events, timed)
+        with _counts_lock:
+            for name, seconds in found.items():
+                _device_s[name] = _device_s.get(name, 0.0) + seconds
     ranges: dict[str, list] = {}
-    for e in events():
+    for e in events:
         if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU:
             ranges.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
     mine: dict[str, list] = {}
@@ -117,6 +134,42 @@ def _settle(result) -> None:
         if len(theirs) == len(group):
             for s, (start, end) in zip(sorted(group, key=lambda s: s.start_ns), theirs):
                 s.start_ns, s.end_ns = start, end
+
+
+def device_time_inside(events, names) -> dict[str, float]:
+    """Device seconds, per name of ``names``, of the kernels, copies and
+    sets among the profiler's ``events`` whose launching op began inside a
+    CPU range of that name on the op's own thread. A range mirrored on the
+    device's timeline (a device event named as a CPU range) is no device
+    work."""
+    cpu = torch.autograd.DeviceType.CPU
+    ops, launched, annotations, spans = {}, [], set(), {name: {} for name in names}
+    for e in events:
+        if e.device_type() == cpu:
+            if e.is_user_annotation():
+                annotations.add(e.name())
+                if e.name() in spans:
+                    spans[e.name()].setdefault(e.start_thread_id(), []).append(
+                        (e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif e.linked_correlation_id() == 0:
+                ops[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+        elif not e.is_user_annotation() and e.linked_correlation_id() > 0:
+            launched.append((e.name(), e.linked_correlation_id(), e.duration_ns()))
+    launched = [(corr, ns) for name, corr, ns in launched if name not in annotations]
+    out = {}
+    for name, threads in spans.items():
+        found = {tid: sorted(r) for tid, r in threads.items()}
+        starts = {tid: [s for s, _ in r] for tid, r in found.items()}
+        total = 0
+        for corr, ns in launched:
+            t, tid = ops.get(corr, (None, None))
+            if tid not in found:
+                continue
+            i = bisect.bisect_right(starts[tid], t) - 1
+            if i >= 0 and t <= found[tid][i][1]:
+                total += ns
+        out[name] = total / 1e9
+    return out
 
 
 class Span:
@@ -163,12 +216,15 @@ class Span:
         return "Span({!r}, id={!r}, {:.3f} ms)".format(self.name, self.id, self.ms)
 
 
-def span(name: str, id=None):
+def span(name: str, id=None, device: bool = False):
     """A context manager that records ``name`` (with ``id``) over its body
     while a profiler is active on this thread; otherwise a shared null
-    context."""
+    context. With ``device`` the device time of what it launches is summed
+    under ``name`` when the session ends (``device_seconds``)."""
     if not _profiler_enabled():
         return _NULL
+    if device:
+        _device_named.add(name)
     return Span(name, id)
 
 
@@ -188,12 +244,20 @@ def recorded() -> tuple[list[Span], dict[str, int]]:
         return list(_spans), dict(_counts)
 
 
+def device_seconds() -> dict[str, float]:
+    """The device seconds of what each ``span(..., device=True)`` name
+    launched, over the sessions ended since the last ``reset``."""
+    with _counts_lock:
+        return dict(_device_s)
+
+
 def reset() -> None:
-    """Forget every recorded span and counter."""
+    """Forget every recorded span, counter and span's device time."""
     with _counts_lock:
         _spans.clear()
         _counts.clear()
         _unsettled.clear()
+        _device_s.clear()
 
 
 def enable_nan_debugging(enable: bool = True) -> None:

@@ -302,6 +302,66 @@ def test_a_span_takes_its_ranges_own_clock_when_the_session_ends(monkeypatch):
     assert all(abs(a - d) >= 6_000_000 for (a, _), (d, _) in zip(ann, sorted(during)))
 
 
+class _Event:
+    """What ``device_time_inside`` reads of a profiler event."""
+
+    def __init__(self, name, device, start, dur, tid=0, corr=0, linked=0, annotation=False):
+        self._v = (name, device, start, dur, tid, corr, linked, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def start_ns(self):
+        return self._v[2]
+
+    def duration_ns(self):
+        return self._v[3]
+
+    def start_thread_id(self):
+        return self._v[4]
+
+    def correlation_id(self):
+        return self._v[5]
+
+    def linked_correlation_id(self):
+        return self._v[6]
+
+    def is_user_annotation(self):
+        return self._v[7]
+
+
+def test_a_device_timed_span_sums_what_its_ops_launched():
+    """The device time under a name is that of the kernels, copies and
+    sets linked to ops that began inside a range of the name on the op's
+    own thread: not those of ops outside it, on a thread without such a
+    range, or unknown, nor a runtime call on the host or the range's
+    mirror on the device's timeline."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [
+        _Event("r", cpu, 100, 100, tid=1, corr=90, annotation=True),
+        _Event("r", cpu, 300, 100, tid=1, corr=91, annotation=True),
+        _Event("r", cpu, 100, 400, tid=2, corr=92, annotation=True),
+        _Event("aten::bmm", cpu, 150, 10, tid=1, corr=1),
+        _Event("aten::add", cpu, 250, 10, tid=1, corr=2),
+        _Event("aten::_efficient_attention_forward", cpu, 350, 10, tid=1, corr=3),
+        _Event("aten::mm", cpu, 150, 10, tid=3, corr=4),
+        _Event("aten::copy_", cpu, 120, 10, tid=2, corr=5),
+        _Event("cudaLaunchKernel", cpu, 151, 2, tid=1, corr=6, linked=1),
+        _Event("gemm", cuda, 1000, 10, linked=1),
+        _Event("elementwise", cuda, 1010, 20, linked=2),
+        _Event("fmha", cuda, 1030, 30, linked=3),
+        _Event("Memcpy DtoD", cuda, 1060, 5, linked=3),
+        _Event("gemm", cuda, 1070, 40, linked=4),
+        _Event("copy", cuda, 1110, 50, linked=5),
+        _Event("r", cuda, 1000, 1000, linked=1),
+        _Event("gemm", cuda, 1160, 7, linked=99),
+    ]
+    assert profiling.device_time_inside(events, {"r", "absent"}) == {"r": pytest.approx(95e-9), "absent": 0.0}
+
+
 def test_reset_empties_spans_and_counters():
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU]):
